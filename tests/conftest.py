@@ -9,6 +9,12 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card with compute capability >= 9.0 "
+        "(skips elsewhere; decided in a fixture, not at import)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.key(0)
