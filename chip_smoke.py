@@ -5,14 +5,19 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from the checkout's sources, holds
-each against its plain PyTorch version on the card, runs the runner's
-reduced gemma-2b cells, then serves and steps gemma-2b at its full
-published width through the user entry points, and checks that every
-attention call of that run went through the kernel.  One JSON line per
-phase; the last line is the ``{"ok": true, "device": ...}`` summary.  Any
-failed phase raises and the script exits non-zero, printing no summary;
-so it does without a card, and outside a checkout of the repository.
+It builds the hand-written CUDA kernels from the checkout's sources (one
+``nvcc`` per source, all started together), holds each against its plain
+PyTorch version on the card, runs the runner's reduced gemma-2b and
+mamba2-2.7b cells, checks the card against the CPU on small inputs, then
+serves and steps gemma-2b and mamba2-2.7b at their full published widths
+through the user entry points.  Each model's main path runs with every
+kernel's launch count set to 0 just before it and read just after: every
+attention call of the gemma-2b run goes through the flash-attention
+kernel, every prefill of every Mamba-2 layer through the SSD kernel.  One
+JSON line per phase; the last line is the ``{"ok": true, "device": ...}``
+summary.  Any failed phase raises and the script exits non-zero, printing
+no summary; so it does without a card, and outside a checkout of the
+repository.
 
 TF32 is switched off for matrix products and cuDNN, so fp32 plain versions
 are full fp32 on the card.
@@ -34,8 +39,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 TOL = {"fp32": 2e-5, "bf16": 2e-2}             # as tests/test_kernels.py
+SSD_TOL = {"fp32": 5e-5, "bf16": 5e-2}         # as tests/test_kernels.py
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:123"
+SSD_SOURCE = "src/repro_torch/csrc/ssd.cu"
+SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:83"
 
 
 def emit(phase, **kw):
@@ -77,18 +85,27 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel of the port at once: one nvcc per source, each in
+    its own thread (nvcc runs as a subprocess, so the builds overlap)."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as sk
     t0 = time.perf_counter()
-    fa.library()
-    ptxas = fa.build_info.get("ptxas", "")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = re.findall(r"(\d+) bytes spill stores", ptxas)
-    emit("build", kernel="flash_attention", source=FA_SOURCE,
-         seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=fa.build_info.get("seconds"), registers=regs,
-         spill_store_bytes=[int(s) for s in spills],
-         dynamic_smem_bytes_d256=fa.shared_memory_bytes(256),
-         ptxas=ptxas.splitlines())
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(fa.library), ex.submit(sk.library)]:
+            f.result()
+    wall = round(time.perf_counter() - t0, 3)
+    for name, mod, source, smem in (
+            ("flash_attention", fa, FA_SOURCE, dict(dynamic_smem_bytes_d256=fa.shared_memory_bytes(256))),
+            ("ssd", sk, SSD_SOURCE, dict(dynamic_smem_bytes_p64_n128=sk.shared_memory_bytes(64, 128),
+                                         dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16)))):
+        ptxas = mod.build_info.get("ptxas", "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = re.findall(r"(\d+) bytes spill stores", ptxas)
+        emit("build", kernel=name, source=source, seconds_all_builds=wall,
+             nvcc_seconds=mod.build_info.get("seconds"), registers=regs,
+             spill_store_bytes=[int(x) for x in spills], **smem,
+             ptxas=ptxas.splitlines())
 
 
 def _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev):
@@ -188,23 +205,96 @@ def phase_kernels():
     return cases
 
 
+def _ssd_bound(dtype, B, S, H, P, N, init):
+    """Least time for one SSD call: the chunked algorithm's FLOPs at chunk
+    256 (C.B^T once per row and chunk, shared by the heads) at the bf16
+    peak, or the bytes of x, dt, A, B, C (and the initial state, when one
+    is given) read once and y and the final state written once, at the
+    memory rate."""
+    elem = 2 if dtype == "bf16" else 4
+    flops = 0.0
+    for s0 in range(0, S, 256):
+        n = min(256, S - s0)
+        flops += B * (2.0 * n * n * N + H * (2.0 * n * n * P + 4.0 * n * N * P))
+    nbytes = (elem * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
+              + 4 * B * H * P * N * (2 if init else 1))
+    t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_case(name, dtype, B, S, H, P, N, init=False, timed=False):
+    """The SSD kernel against its plain version (``ssd_ref``, which chunks
+    as the kernel does) on the same inputs, y and final state."""
+    import torch
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    dev = torch.device("cuda")
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(B, S, H, P, generator=g).to(dev, tdt)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3).to(dev)
+    Bm = (torch.randn(B, S, N, generator=g) * 0.3).to(dev, tdt)
+    Cm = (torch.randn(B, S, N, generator=g) * 0.3).to(dev, tdt)
+    h0 = torch.randn(B, H, P, N, generator=g).to(dev) if init else None
+    y, state = ssd(x, dt, A, Bm, Cm, init_state=h0)
+    torch.cuda.synchronize()
+    want_y, want_state = ssd_ref(x, dt, A, Bm, Cm, h0)
+    err_y = (y.float() - want_y.float()).abs().max().item()
+    err_s = (state - want_state).abs().max().item()
+    tol = SSD_TOL[dtype]
+    # the tolerance is relative as well as absolute, as in assert_allclose
+    ok_y = bool(((y.float() - want_y.float()).abs() <= tol + tol * want_y.float().abs()).all())
+    ok_s = bool(((state - want_state).abs() <= tol + tol * want_state.abs()).all())
+    res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, H=H, P=P, N=N),
+               init_state=init, max_abs_err=max(err_y, err_s), max_abs_err_y=err_y,
+               max_abs_err_state=err_s, tol=tol,
+               finite=bool(torch.isfinite(y).all().item() and torch.isfinite(state).all().item()))
+    check(res["finite"] and ok_y and ok_s, f"SSD kernel disagrees with its plain version: {res}")
+    if timed:
+        res["bound_ms"], res["bound_by"] = _ssd_bound(dtype, B, S, H, P, N, init)
+        res["ms"] = time_ms(lambda: ssd(x, dt, A, Bm, Cm, init_state=h0))
+        res["plain_ms"] = time_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, h0),
+                                  iters=3, warmup=1)
+        res["library_ms"] = None   # no single PyTorch call computes the SSD scan
+    emit("ssd_vs_plain", **res)
+    return res
+
+
+def phase_ssd_kernels():
+    cases = []
+    for dtype in ("bf16", "fp32"):
+        for B, S, H, P, N in [(1, 64, 2, 16, 32), (2, 96, 3, 16, 32), (1, 128, 1, 32, 16)]:
+            cases.append(ssd_case("test_kernels", dtype, B, S, H, P, N))
+        # mamba2-2.7b full width: H=80, P=64, N=128.  B=4 S=128 is the serve
+        # run's admission; B=1 S=2048 the infer_prefill step
+        cases.append(ssd_case("mamba2_serve_admit", dtype, 4, 128, 80, 64, 128,
+                              timed=dtype == "bf16"))
+        cases.append(ssd_case("mamba2_prefill", dtype, 1, 2048, 80, 64, 128,
+                              timed=dtype == "bf16"))
+        cases.append(ssd_case("ragged_init", dtype, 2, 200, 80, 64, 128, init=True))
+        cases.append(ssd_case("reduced_ragged_init", dtype, 2, 37, 16, 16, 16, init=True))
+    return cases
+
+
 def phase_runner():
     from repro_torch.runner import BenchmarkRunner, Scenario
     runner = BenchmarkRunner(device="cuda")
-    for task, kw in (("infer_prefill", {}), ("infer_decode", {}),
-                     ("serve", dict(batch=8, seq=32))):
-        sc = Scenario(arch="gemma-2b", task=task, **kw)
-        rr = runner.run(sc)
-        emit("runner_cell", scenario=sc.name, status=rr.status, median_us=rr.median_us,
-             compile_us=rr.compile_us, error=rr.error,
-             prov_device=rr.extra.get("prov_device"))
-        check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
+    for arch in ("gemma-2b", "mamba2-2.7b"):
+        for task, kw in (("infer_prefill", {}), ("infer_decode", {}),
+                         ("serve", dict(batch=8, seq=32))):
+            sc = Scenario(arch=arch, task=task, **kw)
+            rr = runner.run(sc)
+            emit("runner_cell", scenario=sc.name, status=rr.status, median_us=rr.median_us,
+                 compile_us=rr.compile_us, error=rr.error,
+                 prov_device=rr.extra.get("prov_device"))
+            check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
 
 
-def phase_reference_check():
+def phase_reference_check(arch):
     """The kernel path against the plain path on a small input: the same
-    reduced gemma-2b weights (fp32 compute) on the card and on the CPU give
-    logits within 1e-4 and equal greedy serve tokens."""
+    reduced weights (fp32 compute) on the card and on the CPU give logits
+    within 1e-4 and equal greedy serve tokens."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -212,7 +302,7 @@ def phase_reference_check():
     from repro_torch.launch.serve import ServeEngine, summarize_metrics
     from repro_torch.models import build_model
     from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
-    cfg = get_arch("gemma-2b").reduced(compute_dtype=torch.float32)
+    cfg = get_arch(arch).reduced(compute_dtype=torch.float32)
     cpu = build_model(cfg, device="cpu", seed=0)
     gpu = copy.deepcopy(cpu).to("cuda")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -226,13 +316,29 @@ def phase_reference_check():
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         eng = ServeEngine(Built(cfg, model), slots=4, max_len=cache_len_bound(reqs))
         digests[name] = summarize_metrics(eng.run(reqs))["tokens_digest"]
-    emit("reference_check", logits_max_abs_err=err, tol=1e-4,
+    emit("reference_check", arch=arch, logits_max_abs_err=err, tol=1e-4,
          digest_cpu=digests["cpu"], digest_cuda=digests["cuda"])
-    check(err <= 1e-4, f"card vs CPU logits differ by {err}")
-    check(digests["cpu"] == digests["cuda"], "card vs CPU serve tokens differ")
+    check(err <= 1e-4, f"{arch}: card vs CPU logits differ by {err}")
+    check(digests["cpu"] == digests["cuda"], f"{arch}: card vs CPU serve tokens differ")
 
 
-def phase_profile(model, steps=5):
+def _counters():
+    """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    return {"flash_attention": flash_attention_cuda, "ssd": ssd_cuda}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_profile(arch, model, steps=5):
     """Where a full-width decode step's time goes, at the serve run's
     shape (4 slots, positions ~130 of a 144-token cache): wall per step
     without the profiler, device time per step and its top kernels from
@@ -262,76 +368,101 @@ def phase_profile(model, steps=5):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels) / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    emit("profile_decode_full", steps=steps, wall_ms_per_step=wall_ms,
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    emit("profile_decode_full", arch=arch, steps=steps, wall_ms_per_step=wall_ms,
          device_ms_per_step=dev_us / 1e3 if dev_us else "not measured",
          device_busy_share=dev_us / 1e3 / wall_ms if dev_us else "not measured",
+         device_kernel_calls_per_step=sum(e.count for e in kernels) / steps,
          top_kernels=[dict(name=e.key[:80], calls_per_step=e.count / steps,
                            ms_per_step=e.self_device_time_total / steps / 1e3)
                       for e in top])
 
 
-def phase_full_width():
-    """gemma-2b at its full published config (18 layers, d_model 2048, MQA
-    head_dim 256, vocab 256000), random weights from seed 0."""
+def phase_full_width(arch, kernel, decode_launches_per_layer):
+    """``arch`` at its full published config, random weights from seed 0:
+    its main path (the serve CLI) with every launch count set to 0 just
+    before it and read just after, then a decode-step profile and the
+    ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at 2048 steps.
+    ``kernel`` launches once per layer in every prefill forward and
+    ``decode_launches_per_layer`` times per layer in a decode step."""
+    import gc
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
     from repro_torch.core.suite import get_benchmark
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda as fa
     from repro_torch.launch import serve
-    cfg = get_arch("gemma-2b")
+    cfg = get_arch(arch)
+    per_prefill = cfg.n_layers
+    per_decode = cfg.n_layers * decode_launches_per_layer
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", "gemma-2b", "--full", "--requests", "8", "--slots", "4",
+    argv = ["--arch", arch, "--full", "--requests", "8", "--slots", "4",
             "--prompt-len", "128", "--max-new", "16"]
     buf = io.StringIO()
-    fa.launches = 0                      # main path: serve through the CLI
+    _reset_counts()                      # main path: serve through the CLI
     with contextlib.redirect_stdout(buf):
         rc = serve.main(argv)
-    launches = fa.launches
+    counts = _read_counts()
     text = buf.getvalue()
     print(text, end="", flush=True)
     m = re.search(r"served (\d+) requests .*?: (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, "
                   r"(\d+) steps, \w+ admission: (\d+) prefill calls\)", text)
-    check(rc == 0 and m, f"serve CLI failed: {text}")
+    check(rc == 0 and m, f"{arch}: serve CLI failed: {text}")
     served, tokens, steps, admits = (int(m.group(i)) for i in (1, 2, 5, 6))
     ttft_p50 = float(re.search(r"ttft_us\s+p50=(\d+)", text).group(1))
-    forwards = steps + admits
-    emit("serve_full", argv=argv, requests=served, tokens=tokens,
-         tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, decode_steps=steps,
-         admit_calls=admits, kernel_launches=launches, forwards=forwards,
-         launches_per_forward=launches / forwards)
-    check(served == 8 and tokens == 8 * 16, "not every request was answered")
-    check(launches == cfg.n_layers * forwards,
-          f"{launches} kernel launches for {forwards} forwards of {cfg.n_layers} layers")
+    tok_p50 = float(re.search(r"tok_lat_us\s+p50=(\d+)", text).group(1))
+    launches = counts[kernel]
+    expected = per_prefill * admits + per_decode * steps
+    emit("serve_full", arch=arch, argv=argv, requests=served, tokens=tokens,
+         tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
+         decode_steps=steps, admit_calls=admits, kernel=kernel, kernel_launches=counts,
+         expected_launches=expected)
+    check(served == 8 and tokens == 8 * 16, f"{arch}: not every request was answered")
+    check(launches == expected and launches > 0,
+          f"{arch}: {launches} {kernel} launches for {admits} admission prefills and "
+          f"{steps} decode steps of {cfg.n_layers} layers (expected {expected})")
 
     built = serve.built_for_cfg(cfg)
-    phase_profile(built.model)
-    steps_out = {}
-    for task, batch, donate in (("infer_prefill", 1, ()), ("infer_decode", 4, (2,))):
-        step, args, mutable = get_benchmark("gemma-2b", task).make(
+    phase_profile(arch, built.model)
+    for task, batch, donate, want in (("infer_prefill", 1, (), per_prefill),
+                                      ("infer_decode", 4, (2,), per_decode)):
+        step, args, mutable = get_benchmark(arch, task).make(
             batch=batch, seq=2048, built=built)
         # prefill is measured fresh every call (its cache copied); decode
-        # threads its cache, 7 steps from position 2048 inside max_len 2056
+        # threads its cache, 7 steps from position 2048 (inside max_len 2056)
         fn = harness.prepare(step, donate, mutable=mutable)
-        fa.launches = 0
+        _reset_counts()
         out = fn(*args)
         torch.cuda.synchronize()
-        per_forward = fa.launches
+        per_forward = _read_counts()[kernel]
         logits = out[0]
         check(tuple(logits.shape) == (batch, 1, cfg.vocab)
               and bool(torch.isfinite(logits.float()).all().item()),
-              f"{task}: logits {tuple(logits.shape)} not finite or misshapen")
-        meas = harness.measure(f"gemma-2b/{task}/b{batch}/s2048", step, args, donate,
+              f"{arch} {task}: logits {tuple(logits.shape)} not finite or misshapen")
+        meas = harness.measure(f"{arch}/{task}/b{batch}/s2048", step, args, donate,
                                runs=5, warmup=1, jitted=fn)
-        steps_out[task] = meas
-        emit("step_full", task=task, batch=batch, seq=2048, median_us=meas.median_us,
-             p10_us=meas.p10_us, p90_us=meas.p90_us, launches_per_forward=per_forward)
-        check(per_forward == cfg.n_layers,
-              f"{task}: {per_forward} kernel launches in one forward")
-    emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(),
+        emit("step_full", arch=arch, task=task, batch=batch, seq=2048,
+             median_us=meas.median_us, p10_us=meas.p10_us, p90_us=meas.p90_us,
+             kernel=kernel, launches_per_forward=per_forward)
+        check(per_forward == want,
+              f"{arch} {task}: {per_forward} {kernel} launches in one forward, expected {want}")
+        del step, args, out, fn
+    emit("memory", arch=arch, max_memory_allocated=torch.cuda.max_memory_allocated(),
          param_bytes=sum(p.numel() * p.element_size() for p in built.model.parameters()))
     return launches
+
+
+def _kernel_entry(name, source, replaces, launches, cases, main_case):
+    main = next(c for c in cases if c["case"] == main_case and c["dtype"] == "bf16")
+    timed = [{k: c[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "max_abs_err")}
+             for c in cases if "ms" in c]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timed_case": f"{main_case}/bf16", "cases": timed}
 
 
 def main():
@@ -344,23 +475,20 @@ def main():
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    cases = phase_kernels()
+    fa_cases = phase_kernels()
+    ssd_cases = phase_ssd_kernels()
     phase_runner()
-    phase_reference_check()
-    launches = phase_full_width()
-    main_case = next(c for c in cases if c["case"] == "gemma2b_prefill" and c["dtype"] == "bf16")
-    timed = [{k: c[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "max_abs_err")}
-             for c in cases if "ms" in c]
+    phase_reference_check("gemma-2b")
+    phase_reference_check("mamba2-2.7b")
+    fa_launches = phase_full_width("gemma-2b", "flash_attention", 1)
+    ssd_launches = phase_full_width("mamba2-2.7b", "ssd", 0)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-        "replaces": FA_REPLACES, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"], "timed_case": "gemma2b_prefill/bf16",
-        "cases": timed}], "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+    print(json.dumps({"kernels": [
+        _kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES, fa_launches, fa_cases,
+                      "gemma2b_prefill"),
+        _kernel_entry("ssd", SSD_SOURCE, SSD_REPLACES, ssd_launches, ssd_cases,
+                      "mamba2_prefill")],
+        "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -5,8 +5,11 @@ cannot reproduce, so parity tests move the reference's param pytree into
 the port: ``params_from_numpy`` takes the tree as numpy arrays (the
 stacked layer axis included, bf16 as ``ml_dtypes.bfloat16`` or any float)
 and returns the port's ``Model`` holding those weights.
-``cache_from_numpy`` / ``cache_to_numpy`` do the same for KV caches, so a
-test can compare caches as well as logits.  Nothing here imports JAX.
+``cache_from_numpy`` / ``cache_to_numpy`` do the same for caches (the
+dense KV cache, the ssm family's conv/SSM state), so a test can compare
+caches as well as logits.  Every leaf takes the dtype its ``ParamDef``
+declares: the ssm family's ``A_log``, ``D``, ``dt_bias`` and cache ``ssm``
+stay fp32 whatever the compute dtype.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import ParamDef
 from repro_torch.models.model import Model, param_defs
 
@@ -53,9 +56,10 @@ def _convert(defs, tree, device):
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg,
-                      device: DeviceLike = "cpu") -> Model:
-    """The port's model holding the reference's params ``tree``."""
-    return Model(cfg, _convert(param_defs(cfg), tree, torch.device(device)))
+                      device: DeviceLike = "cuda") -> Model:
+    """The port's model holding the reference's params ``tree``, on the
+    card unless the caller asks for the CPU (raises without a card)."""
+    return Model(cfg, _convert(param_defs(cfg), tree, resolve_device(device)))
 
 
 def cache_from_numpy(tree: Mapping[str, Any], model: Model, batch: int,

@@ -9,6 +9,7 @@ from repro_torch.configs.base import (  # noqa: F401
     register_arch,
     shape_applicable,
 )
-# Importing the per-arch modules registers them.  The other nine archs of
+# Importing the per-arch modules registers them.  The other eight archs of
 # the reference come with their families (ROADMAP Queue 1).
 from repro_torch.configs import gemma_2b  # noqa: F401
+from repro_torch.configs import mamba2_2p7b  # noqa: F401

@@ -17,7 +17,7 @@ updates its ``mutable`` arguments in place; donated ones are threaded
 through the calls (``_thread``), the others are copied per call so every
 call sees the arguments it was given (what a jitted step without donation
 sees).  ``measure_eager`` and the profiler/tracing hooks wait for the
-compiler modes and ``profiler/`` (ROADMAP Queue 1, slice 5).
+compiler modes and ``profiler/`` (ROADMAP Queue 1, slice 7).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Every entry is a computation-phase benchmark (paper §2.2): one step over
 device-resident inputs, no data loading inside the measured region.  The
 port registers the inference tasks of the archs it has ported;
-``task="train"`` comes with the training slice (ROADMAP Queue 1, slice 2).
+``task="train"`` comes with the training slice (ROADMAP Queue 1, slice 4).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class Benchmark:
         if self.task == "train":
             raise NotImplementedError(
                 "task='train' comes with the training slice (ROADMAP "
-                "Queue 1, slice 2: optim/, launch/steps.py, loss)")
+                "Queue 1, slice 4: optim/, launch/steps.py, loss)")
         if self.task not in ("infer_prefill", "infer_decode"):
             raise ValueError(self.task)
         if built is None:

@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels for Hopper, one package per TPU kernel.
 
 Each kernel package has:
-  kernel.py — builds the CUDA source under ``repro_torch/csrc/`` with nvcc
-              (at first use), binds it with ctypes, checks and launches it
+  kernel.py — binds the CUDA source under ``repro_torch/csrc/`` (built with
+              nvcc at first use by ``build.py``) with ctypes, checks and
+              launches it, and counts its launches
   ops.py    — public wrapper: the kernel for CUDA tensors, the plain
               version for CPU tensors, nothing else
   ref.py    — the plain PyTorch version the kernel is held against
 
-Only flash attention is ported so far; the SSD and RG-LRU kernels come
-with their families (ROADMAP Queue 2, K2 and K3).
+Ported: flash attention (K1) and the Mamba-2 SSD chunked scan (K2).  The
+RG-LRU scan (K3) comes with recurrentgemma-9b (ROADMAP Queue 1, slice 3).
 """
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.ssd.ops import ssd  # noqa: F401

@@ -2,86 +2,34 @@
 
 Port of the Pallas TPU kernel ``repro.kernels.flash_attention.kernel.
 flash_attention_bh``; the source and its design note are in
-``src/repro_torch/csrc/flash_attention.cu``.  It is compiled with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface and bound
-with ``ctypes``.  The build happens at first use, never at import: the
-library lands in ``build/`` at the root of the checkout under a name keyed
-by the source's hash, so a changed source rebuilds.
+``src/repro_torch/csrc/flash_attention.cu``.  It is built with ``nvcc`` at
+first use and bound with ``ctypes`` by ``repro_torch.kernels.build``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional
 
 import torch
 
-NAME = "flash_attention"
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
+from repro_torch.kernels.build import CSRC, CudaLibrary
+
 MASK_IDS = {"full": 0, "causal": 1, "local": 2, "prefix": 3}
 MAX_HEAD_DIM = 256
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.fa_forward
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.fa_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fa_smem_bytes.restype = ctypes.c_size_t
+
+
+LIBRARY = CudaLibrary("flash_attention", CSRC / "flash_attention.cu", _bind)
 #: the last build's {"seconds", "ptxas", "path"} (chip_smoke prints it)
-build_info: Dict[str, object] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the flash-attention kernel is built "
-                       "from source at first use on a CUDA machine")
-
-
-def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-        path = BUILD_DIR / f"{NAME}-{digest}.so"
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                os.remove(tmp)
-                raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n"
-                                   f"{r.stderr[-4000:]}")
-            os.replace(tmp, path)
-            build_info.update(seconds=time.perf_counter() - t0,
-                              ptxas=r.stderr.strip(), path=str(path))
-        else:
-            build_info.setdefault("seconds", 0.0)
-            build_info.setdefault("path", str(path))
-        lib = ctypes.CDLL(str(path))
-        fn = lib.fa_forward
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.fa_smem_bytes.argtypes = [ctypes.c_int]
-        lib.fa_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
-        return lib
+build_info = LIBRARY.build_info
+library = LIBRARY.load
 
 
 def shared_memory_bytes(head_dim: int) -> int:

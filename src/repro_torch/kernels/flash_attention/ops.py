@@ -10,7 +10,7 @@ kernel (kv head ``h // G``), so nothing is repeated here.
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.attention_ref``; a CUDA tensor launches the kernel, or the call
 raises.  There is no fallback from one to the other.  There is no
-tuning-DB lookup yet (``tuning/`` is ROADMAP Queue 1, slice 5): the
+tuning-DB lookup yet (``tuning/`` is ROADMAP Queue 1, slice 7): the
 kernel's tiles are fixed in its source.
 """
 from __future__ import annotations
@@ -45,7 +45,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if v.shape[-1] != D:
         raise NotImplementedError(
             "flash_attention: Dv != D (MLA) is not ported yet (ROADMAP "
-            "Queue 1, slice 3: deepseek-v2)")
+            "Queue 1, slice 5: deepseek-v2)")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, mask_type=mask_type, window=window,
                              prefix_len=prefix_len, q_offset=q_offset,

@@ -8,7 +8,7 @@ Both raise a ``ValueError`` naming the kernel, the offending dimension and
 the nearest valid block.  The reference's ``resolve_interpret`` (Pallas
 execution mode) and ``dtype_name`` (tuning-DB tag) have no counterpart
 yet: the port has no interpret mode, and the tuner is ROADMAP Queue 1,
-slice 5.
+slice 7.
 """
 from __future__ import annotations
 

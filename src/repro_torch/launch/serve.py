@@ -22,7 +22,7 @@ reference's compiled-shape bookkeeping (``admit_shapes``) is kept as the
 record of which (rows, padded length) prefill shapes ran.
 
 The reference's fleet-metrics calls wait for ``fleet/`` (ROADMAP Queue 1,
-slice 5), its profiler and tracing hooks too.
+slice 7), its profiler and tracing hooks too.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --requests 16 --slots 4 --prompt-len 32 --trace bursty

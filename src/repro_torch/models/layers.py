@@ -1,4 +1,5 @@
-"""Shared building blocks (port of ``repro.models.layers``, dense subset).
+"""Shared building blocks (port of ``repro.models.layers``: the dense subset
+and the causal conv).
 
 Parameters are *declared* through ``ParamDef`` trees (shape, dtype, axes,
 init) exactly as in the reference, so the port's trees have the
@@ -7,10 +8,10 @@ explicit ``torch.Generator``.  The layer functions take their parameters
 as a mapping ``p`` (a dict or an ``nn.ParameterDict``), like the
 reference's param pytrees.
 
-What gemma-2b does not use is left out and raises ``NotImplementedError``
-naming the ROADMAP item: the local ring-buffer cache (gemma3),
-``cross_kv`` (whisper), ``qk_norm`` (gemma3), ``causal_conv1d`` (mamba2,
-recurrentgemma) and ``opt_bf16_probs``.
+What gemma-2b and mamba2-2.7b do not use is left out and raises
+``NotImplementedError`` naming the ROADMAP item: the local ring-buffer
+cache (gemma3, recurrentgemma), ``cross_kv`` (whisper), ``qk_norm``
+(gemma3) and ``opt_bf16_probs``.
 
 The KV cache is updated in place: ``_row_update`` writes into the cache
 tensors it is given, and ``gqa_attention`` advances the cache's ``len``
@@ -152,7 +153,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bf16_probs:
         raise NotImplementedError(
             "opt_bf16_probs: bf16 score traffic is not ported "
-            "(ROADMAP Queue 1, slice 5 measurement/perf knobs)")
+            "(ROADMAP Queue 1, slice 7 measurement/perf knobs)")
     return flash_attention(q, k, v, mask_type=mask_type, window=window,
                            prefix_len=prefix_len, q_offset=q_offset,
                            kv_len=kv_len, softmax_scale=softmax_scale,
@@ -168,7 +169,7 @@ def gqa_defs(cfg, layers_prefix: Tuple[int, ...] = ()) -> dict:
     """Param defs for a standard GQA attention layer (optionally stacked)."""
     if cfg.qk_norm:
         raise NotImplementedError("qk_norm is not ported yet (ROADMAP "
-                                  "Queue 1, slice 3: gemma3-12b)")
+                                  "Queue 1, slice 5: gemma3-12b)")
     D = cfg.head_dim
     lp = layers_prefix
     la = ("layers",) * len(lp)
@@ -213,7 +214,7 @@ def gqa_attention(
     in place (``None`` without a cache)."""
     if cross_kv is not None:
         raise NotImplementedError("cross_kv (encoder-decoder attention) is "
-                                  "not ported yet (ROADMAP Queue 1, slice 3: "
+                                  "not ported yet (ROADMAP Queue 1, slice 5: "
                                   "whisper-large-v3)")
     B, S, E = x.shape
     D = cfg.head_dim
@@ -238,7 +239,7 @@ def gqa_attention(
         if mask_type == "local" and 0 < window == cache["k"].shape[1]:
             raise NotImplementedError("the local ring-buffer KV cache is not "
                                       "ported yet (ROADMAP Queue 1, slice 3: "
-                                      "gemma3-12b)")
+                                      "recurrentgemma-9b)")
         idx = cache["len"].clone()
         # padded batched prefill: each row's valid prefix ends at
         # seq_lens[r]; keys written past it sit at positions the position
@@ -289,8 +290,39 @@ def ffn(p: Mapping[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
     return h @ p["w_down"].to(cdt)
 
 
-def causal_conv1d(*args, **kwargs):
-    """Depthwise causal conv of the mamba2 / recurrentgemma blocks."""
-    raise NotImplementedError("causal_conv1d is not ported yet (ROADMAP "
-                              "Queue 1, slice 3: mamba2-2.7b, "
-                              "recurrentgemma-9b)")
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d (mamba2 / recurrentgemma blocks)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None,
+                  lengths: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, S, C), w (W, C) depthwise causal conv.
+
+    Returns (y, new_state) where state is the last W-1 inputs (B, W-1, C).
+    ``lengths`` (B,) marks each row's valid prefix under right-padded
+    batched prefill: the carried state is then gathered per row at its own
+    boundary instead of from the padded tail.  As in the reference, the
+    conv is W shifted multiply-adds in x's dtype (not ``F.conv1d``, which
+    cuDNN would run in TF32 on the card).
+    """
+    W = w.shape[0]
+    B, S, C = x.shape
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    if W == 1:
+        new_state = None
+    elif lengths is None:
+        new_state = xp[:, -(W - 1):, :]
+    else:
+        # row r's last W-1 valid inputs live at xp[lengths[r] : lengths[r]+W-1]
+        idx = lengths.long()[:, None] + torch.arange(W - 1, device=x.device)
+        new_state = torch.gather(xp, 1, idx[..., None].expand(B, W - 1, C))
+    y = torch.zeros_like(x)
+    for i in range(W):
+        y = y + xp[:, i: i + S, :] * w[i]
+    return y, new_state

@@ -1,4 +1,4 @@
-"""The model (port of ``repro.models.model``, dense branch).
+"""The model (port of ``repro.models.model``: the dense and ssm branches).
 
 ``Model`` is an ``nn.Module`` that holds its weights:
 
@@ -9,14 +9,17 @@
   decode_step(tokens, cache)                one token with cache
 
 The weights are declared as the reference declares them, with the stacked
-layer axis, and materialised once; each layer's ``Block`` then holds views
-of its slice, and the layers run as a Python loop.  The KV cache keeps the
-reference's stacked layout ``{"blocks": {"k", "v": (L, B, max, K, D),
-"len": (L, B)}}`` and is updated in place (the reference donates it).
+layer axis, and materialised once; each layer's module (``Block`` for the
+dense family, ``MambaBlock`` for the ssm family) then holds views of its
+slice, and the layers run as a Python loop.  The caches keep the
+reference's stacked layout — ``{"blocks": {"k", "v": (L, B, max, K, D),
+"len": (L, B)}}`` for dense, ``{"blocks": {"conv": (L, B, W-1, C), "ssm":
+(L, B, H, P, N), "len": (L, B)}}`` for ssm — and are updated in place (the
+reference donates them).
 
-Only the dense family without a local window is ported; the others come
-with their slices (ROADMAP Queue 1, slice 3).  ``loss`` and ``remat``
-come with training (slice 2).
+The dense family without a local window and the ssm family (mamba2) are
+ported; the others come with their slices (ROADMAP Queue 1).  ``loss`` and
+``remat`` come with training.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.layers import ParamDef
 
 
@@ -40,33 +44,43 @@ def _attn_block_defs(cfg, lp):
             "ln2": _norm_def(cfg, lp), "mlp": L.ffn_defs(cfg, None, lp)}
 
 
+#: ROADMAP slice of each family the port does not run yet
+_UNPORTED = {"hybrid": "slice 3: recurrentgemma-9b"}
+
+
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP Queue 1, slice 3)")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
+            f"Queue 1, {_UNPORTED.get(cfg.family, 'slice 5')})")
     if cfg.local_window > 0 or cfg.global_every > 0:
         raise NotImplementedError(
             f"{cfg.name}: local/global attention patterns and ring caches "
-            f"are not ported yet (ROADMAP Queue 1, slice 3: gemma3-12b)")
+            f"are not ported yet (ROADMAP Queue 1, slice 5: gemma3-12b)")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA is not ported yet "
-                                  f"(ROADMAP Queue 1, slice 3: deepseek-v2)")
+                                  f"(ROADMAP Queue 1, slice 5: deepseek-v2)")
     if not cfg.tie_embeddings or cfg.pos_embed == "learned":
         raise NotImplementedError(
             f"{cfg.name}: untied heads and learned positions are not ported "
-            f"yet (ROADMAP Queue 1, slice 3)")
+            f"yet (ROADMAP Queue 1, slice 5)")
 
 
 def param_defs(cfg) -> Dict[str, Any]:
-    """The reference's param tree for the dense family: stacked blocks."""
+    """The reference's param tree for the dense and ssm families: stacked
+    blocks."""
     check_supported(cfg)
+    lp = (cfg.n_layers,)
+    if cfg.family == "ssm":
+        blocks = {"ln": _norm_def(cfg, lp), "mix": ssm.mamba2_defs(cfg, lp)}
+    else:
+        blocks = _attn_block_defs(cfg, lp)
     return {
         "embed": ParamDef((cfg.vocab, cfg.d_model), ("w_vocab", "w_embed_pod"),
                           cfg.param_dtype, "embed"),
         "final_norm": _norm_def(cfg),
-        "blocks": _attn_block_defs(cfg, (cfg.n_layers,)),
+        "blocks": blocks,
     }
 
 
@@ -99,6 +113,24 @@ class Block(nn.Module):
         return x + L.ffn(self.mlp, h, cfg)
 
 
+class MambaBlock(nn.Module):
+    """One ssm layer: RMSNorm -> Mamba-2 mixer, with a residual."""
+
+    def __init__(self, cfg, p: Mapping[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = _frozen(p["ln"])
+        self.mix = nn.ParameterDict({k: _frozen(v) for k, v in p["mix"].items()})
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[dict] = None,
+                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = L.rms_norm(x, self.ln, self.cfg.norm_eps)
+        h, _ = ssm.mamba2_block(self.mix, h, self.cfg, cache=cache,
+                                seq_lens=seq_lens)
+        return x + h
+
+
 def _layer(tree, i: int):
     if isinstance(tree, torch.Tensor):
         return tree[i]
@@ -106,8 +138,8 @@ def _layer(tree, i: int):
 
 
 class Model(nn.Module):
-    """The dense model over a param tree in the reference's layout (the
-    ``blocks`` leaves carry the stacked layer axis)."""
+    """The dense or ssm model over a param tree in the reference's layout
+    (the ``blocks`` leaves carry the stacked layer axis)."""
 
     def __init__(self, cfg, params: Mapping[str, Any]):
         super().__init__()
@@ -115,8 +147,9 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _frozen(params["embed"])
         self.final_norm = _frozen(params["final_norm"])
+        block = MambaBlock if cfg.family == "ssm" else Block
         self.blocks = nn.ModuleList(
-            Block(cfg, _layer(params["blocks"], i)) for i in range(cfg.n_layers))
+            block(cfg, _layer(params["blocks"], i)) for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -167,6 +200,8 @@ class Model(nn.Module):
     def cache_defs(self, batch: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg
         lp = (cfg.n_layers,)
+        if cfg.family == "ssm":   # a fixed-size state: max_len is unused
+            return {"blocks": ssm.mamba2_cache_defs(cfg, batch, lp)}
         kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         axes = ("layers", "cache_batch", "cache_seq", "cache_heads", None)
         cdt = cfg.compute_dtype

@@ -14,8 +14,8 @@ Runs ``infer_prefill``, ``infer_decode`` and ``serve`` cells in modes
 tasks and modes come back as error records naming the ROADMAP item.  Not
 ported yet, and raising ``NotImplementedError`` when asked for: the pool
 (``jobs``), cluster dispatch and subprocess isolation (ROADMAP Queue 1,
-slice 4); profiling, span tracing, coverage, kernel micro-bench cells,
-loadgen and the dry-run tier (slice 5).
+slice 6); profiling, span tracing, coverage, kernel micro-bench cells,
+loadgen and the dry-run tier (slice 7).
 """
 from __future__ import annotations
 
@@ -33,8 +33,8 @@ from repro_torch.runner.traces import (cache_len_bound, capture_spec,
                                        spec_for_scenario)
 from repro_torch.runner.traces import generate as generate_trace
 
-_DISPATCH = "(ROADMAP Queue 1, slice 4: dispatch)"
-_MEASURE = "(ROADMAP Queue 1, slice 5: measurement subsystems)"
+_DISPATCH = "(ROADMAP Queue 1, slice 6: dispatch)"
+_MEASURE = "(ROADMAP Queue 1, slice 7: measurement subsystems)"
 
 
 def _unported(**flags) -> None:
@@ -112,7 +112,7 @@ class BenchmarkRunner:
         if scenario.mode not in PORTED_MODES:
             raise NotImplementedError(
                 f"mode {scenario.mode!r} is not ported yet (ROADMAP Queue 1, "
-                f"slice 5: compilers, eager vs torch.compile)")
+                f"slice 7: compilers, eager vs torch.compile)")
         hits0 = self.stats.model_cache_hits
         built = self.built_for(scenario.arch, dtype=scenario.dtype,
                                mode=scenario.mode)
@@ -287,4 +287,4 @@ class BenchmarkRunner:
 
     def run_dryrun(self, *args, **kwargs):
         raise NotImplementedError("the derived (dry-run) tier is not ported "
-                                  "yet (ROADMAP Queue 1, slice 5)")
+                                  "yet (ROADMAP Queue 1, slice 7)")

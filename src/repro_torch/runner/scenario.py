@@ -18,10 +18,10 @@ How the compiler modes map onto eager PyTorch in the port:
     eager, jit_unrolled, jit_noremat
                  not run yet: they come back as ``status="error"`` records
                  naming the ROADMAP item (the compilers item, Queue 1,
-                 slice 5: eager vs ``torch.compile``)
+                 slice 7: eager vs ``torch.compile``)
 
 ``task="loadgen"`` and ``task="kernel"`` validate here, but the port's
-runner does not run them yet (ROADMAP Queue 1, slice 5).
+runner does not run them yet (ROADMAP Queue 1, slice 7).
 """
 from __future__ import annotations
 
@@ -214,7 +214,7 @@ class ScenarioMatrix:
     ``"loadgen"`` only.  Serve cells skip modes outside ``SERVE_MODES``,
     kernel cells modes outside ``KERNEL_MODES``.  ``slots="auto"`` (resolved
     from a measured load curve in the reference) waits for ``loadgen``
-    (ROADMAP Queue 1, slice 5) and raises.
+    (ROADMAP Queue 1, slice 7) and raises.
     """
     archs: Sequence[str]
     tasks: Sequence[str] = STEP_TASKS
@@ -235,7 +235,7 @@ class ScenarioMatrix:
         if "auto" in self.slots:
             raise NotImplementedError("slots='auto' needs the load-curve "
                                       "autoscaler (runner/loadgen.py, ROADMAP "
-                                      "Queue 1, slice 5)")
+                                      "Queue 1, slice 7)")
         skip = set(self.skip)
         out: List[Scenario] = []
         for arch, task, batch, seq, dtype, mode in itertools.product(

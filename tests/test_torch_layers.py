@@ -157,8 +157,8 @@ def test_unported_layer_features_raise_naming_the_roadmap():
             "len": torch.zeros(1, dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="ring"):
         L.gqa_attention(p, x, tcfg, mask_type="local", window=8, cache=ring)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.causal_conv1d(x, x)
+    with pytest.raises(NotImplementedError, match="slice 3: recurrentgemma-9b"):
+        L.gqa_attention(p, x, tcfg, mask_type="local", window=8, cache=ring)
     q = torch.zeros(1, 2, 2, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         L.attention(q, q, q, bf16_probs=True)
