@@ -7,17 +7,18 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
 ``nvcc`` per source, all started together), holds each against its plain
-PyTorch version on the card, runs the runner's reduced gemma-2b and
-mamba2-2.7b cells, checks the card against the CPU on small inputs, then
-serves and steps gemma-2b and mamba2-2.7b at their full published widths
-through the user entry points.  Each model's main path runs with every
-kernel's launch count set to 0 just before it and read just after: every
-attention call of the gemma-2b run goes through the flash-attention
-kernel, every prefill of every Mamba-2 layer through the SSD kernel.  One
-JSON line per phase; the last line is the ``{"ok": true, "device": ...}``
-summary.  Any failed phase raises and the script exits non-zero, printing
-no summary; so it does without a card, and outside a checkout of the
-repository.
+PyTorch version on the card, runs the runner's reduced gemma-2b,
+mamba2-2.7b and recurrentgemma-9b cells, checks the card against the CPU
+on small inputs, then serves and steps the three models at their full
+published widths through the user entry points, one model on the card at
+a time.  Each model's main path runs with every kernel's launch count set
+to 0 just before it and read just after: every attention call goes
+through the flash-attention kernel, every prefill of every Mamba-2 layer
+through the SSD kernel, every prefill of every RG-LRU layer through the
+RG-LRU kernel.  One JSON line per phase; the last line is the
+``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
+script exits non-zero, printing no summary; so it does without a card, and
+outside a checkout of the repository.
 
 TF32 is switched off for matrix products and cuDNN, so fp32 plain versions
 are full fp32 on the card.
@@ -44,6 +45,10 @@ FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:123"
 SSD_SOURCE = "src/repro_torch/csrc/ssd.cu"
 SSD_REPLACES = "src/repro/kernels/ssd/kernel.py:83"
+RGLRU_TOL = 2e-5                               # as tests/test_kernels.py (fp32)
+RGLRU_SOURCE = "src/repro_torch/csrc/rglru.cu"
+RGLRU_REPLACES = "src/repro/kernels/rglru/kernel.py:70"
+MEMORY_LIMIT = 50e9                            # bytes: one full model at a time
 
 
 def emit(phase, **kw):
@@ -89,23 +94,27 @@ def phase_build():
     its own thread (nvcc runs as a subprocess, so the builds overlap)."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rglru import kernel as rk
     from repro_torch.kernels.ssd import kernel as sk
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(fa.library), ex.submit(sk.library)]:
+    mods = (fa, sk, rk)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        for f in [ex.submit(m.library) for m in mods]:
             f.result()
     wall = round(time.perf_counter() - t0, 3)
     for name, mod, source, smem in (
             ("flash_attention", fa, FA_SOURCE, dict(dynamic_smem_bytes_d256=fa.shared_memory_bytes(256))),
             ("ssd", sk, SSD_SOURCE, dict(dynamic_smem_bytes_p64_n128=sk.shared_memory_bytes(64, 128),
-                                         dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16)))):
+                                         dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16))),
+            ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0))):
         ptxas = mod.build_info.get("ptxas", "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
         spills = re.findall(r"(\d+) bytes spill stores", ptxas)
+        static_smem = [int(x) for x in re.findall(r"(\d+) bytes smem", ptxas)]
         emit("build", kernel=name, source=source, seconds_all_builds=wall,
              nvcc_seconds=mod.build_info.get("seconds"), registers=regs,
-             spill_store_bytes=[int(x) for x in spills], **smem,
-             ptxas=ptxas.splitlines())
+             spill_store_bytes=[int(x) for x in spills], static_smem_bytes=static_smem,
+             **smem, ptxas=ptxas.splitlines())
 
 
 def _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev):
@@ -277,10 +286,73 @@ def phase_ssd_kernels():
     return cases
 
 
+def _rglru_bound(B, S, D, init):
+    """Least time for one RG-LRU scan: a and x read and h written once in
+    fp32 (and the initial state read) at the memory rate, or its ~7 fp32
+    operations per element (a*a, 1-, max, sqrt, *x, and the multiply-add)
+    at the fp32 peak."""
+    nbytes = 4 * (3 * B * S * D + (B * D if init else 0))
+    flops = 7.0 * B * S * D
+    t_ops, t_bytes = flops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rglru_case(name, B, S, D, init=False, strided=False, decay=None, timed=False):
+    """The RG-LRU kernel against its plain version (``rglru_blocked``, the
+    TPU kernel's blocked log-space algorithm) on the same fp32 inputs, as
+    the model gives them: h and the final state."""
+    import torch
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rglru.ref import rglru_blocked
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    if strided:   # x and a as slices of wider rows
+        buf = torch.randn(B, S, 2 * D + 7, generator=g).to(dev)
+        x, a = buf[..., :D], torch.sigmoid(buf * 2)[..., D:2 * D]
+    else:
+        x = torch.randn(B, S, D, generator=g).to(dev)
+        a = torch.sigmoid(torch.randn(B, S, D, generator=g) * 2).to(dev)
+    if decay is not None:
+        a = torch.cat([torch.full((B, S, D // 2), decay[0]),
+                       torch.full((B, S, D - D // 2), decay[1])], -1).to(dev)
+    h0 = torch.randn(B, D, generator=g).to(dev) if init else None
+    h, h_last = rglru(x, a, init_state=h0)
+    torch.cuda.synchronize()
+    want = rglru_blocked(x, a, h0)
+    diff = (h - want).abs()
+    ok = bool((diff <= RGLRU_TOL + RGLRU_TOL * want.abs()).all())
+    res = dict(case=name, dtype="fp32", shape=dict(B=B, S=S, D=D), init_state=init,
+               strided=strided, max_abs_err=diff.max().item(),
+               max_abs_err_last=(h_last - want[:, -1]).abs().max().item(), tol=RGLRU_TOL,
+               finite=bool(torch.isfinite(h).all().item()))
+    check(res["finite"] and ok, f"RG-LRU kernel disagrees with its plain version: {res}")
+    if timed:
+        res["bound_ms"], res["bound_by"] = _rglru_bound(B, S, D, init)
+        res["ms"] = time_ms(lambda: rglru(x, a, init_state=h0), iters=20)
+        res["plain_ms"] = time_ms(lambda: rglru_blocked(x, a, h0), iters=3, warmup=1)
+        res["library_ms"] = None   # no single PyTorch call computes the recurrence
+    emit("rglru_vs_plain", **res)
+    return res
+
+
+def phase_rglru_kernels():
+    cases = [rglru_case("test_kernels", B, S, D)
+             for B, S, D in [(1, 64, 64), (2, 48, 96), (1, 128, 128), (2, 50, 100)]]
+    # recurrentgemma-9b full width, D = lru_width 4096: B=1 S=2048 is the
+    # infer_prefill step, B=4 S=128 the serve run's admission
+    cases.append(rglru_case("recurrentgemma_prefill", 1, 2048, 4096, timed=True))
+    cases.append(rglru_case("recurrentgemma_serve_admit", 4, 128, 4096, timed=True))
+    for S in (1, 50, 130):
+        cases.append(rglru_case("initial_state", 2, S, 4096, init=True))
+    cases.append(rglru_case("strided_ragged", 3, 37, 300, strided=True))
+    cases.append(rglru_case("extreme_decays", 1, 64, 256, decay=(1e-6, 1 - 1e-6)))
+    return cases
+
+
 def phase_runner():
     from repro_torch.runner import BenchmarkRunner, Scenario
     runner = BenchmarkRunner(device="cuda")
-    for arch in ("gemma-2b", "mamba2-2.7b"):
+    for arch in ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b"):
         for task, kw in (("infer_prefill", {}), ("infer_decode", {}),
                          ("serve", dict(batch=8, seq=32))):
             sc = Scenario(arch=arch, task=task, **kw)
@@ -291,10 +363,11 @@ def phase_runner():
             check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
 
 
-def phase_reference_check(arch):
+def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
     """The kernel path against the plain path on a small input: the same
     reduced weights (fp32 compute) on the card and on the CPU give logits
-    within 1e-4 and equal greedy serve tokens."""
+    within 1e-4 and equal greedy serve tokens (bimodal prompts of
+    ``prompt_len`` / 2 and 2 x ``prompt_len`` tokens)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -306,17 +379,20 @@ def phase_reference_check(arch):
     cpu = build_model(cfg, device="cpu", seed=0)
     gpu = copy.deepcopy(cpu).to("cuda")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 24)).astype(np.int32))
-    lc, _ = cpu.prefill({"tokens": toks}, cpu.init_cache(2, 32))
-    lg, _ = gpu.prefill({"tokens": toks.cuda()}, gpu.init_cache(2, 32))
+        0, cfg.vocab, (2, seq)).astype(np.int32))
+    lc, _ = cpu.prefill({"tokens": toks}, cpu.init_cache(2, max_len))
+    lg, _ = gpu.prefill({"tokens": toks.cuda()}, gpu.init_cache(2, max_len))
     err = (lg.cpu() - lc).abs().max().item()
-    reqs = generate(TraceSpec(profile="bursty", requests=8, prompt_len=16, max_new=8,
-                              prompt_profile="bimodal"), vocab=cfg.vocab)
+    reqs = generate(TraceSpec(profile="bursty", requests=8, prompt_len=prompt_len,
+                              max_new=8, prompt_profile="bimodal"), vocab=cfg.vocab)
     digests = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         eng = ServeEngine(Built(cfg, model), slots=4, max_len=cache_len_bound(reqs))
         digests[name] = summarize_metrics(eng.run(reqs))["tokens_digest"]
-    emit("reference_check", arch=arch, logits_max_abs_err=err, tol=1e-4,
+    emit("reference_check", arch=arch, prompt=seq, max_len=max_len,
+         serve_prompt_lens=sorted({len(r.prompt) for r in reqs}),
+         serve_max_len=cache_len_bound(reqs), local_window=cfg.local_window,
+         logits_max_abs_err=err, tol=1e-4,
          digest_cpu=digests["cpu"], digest_cuda=digests["cuda"])
     check(err <= 1e-4, f"{arch}: card vs CPU logits differ by {err}")
     check(digests["cpu"] == digests["cuda"], f"{arch}: card vs CPU serve tokens differ")
@@ -325,8 +401,10 @@ def phase_reference_check(arch):
 def _counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
-    return {"flash_attention": flash_attention_cuda, "ssd": ssd_cuda}
+    return {"flash_attention": flash_attention_cuda, "ssd": ssd_cuda,
+            "rglru": rglru_cuda}
 
 
 def _reset_counts():
@@ -378,24 +456,40 @@ def phase_profile(arch, model, steps=5):
                       for e in top])
 
 
-def phase_full_width(arch, kernel, decode_launches_per_layer):
+def _free_card():
+    """Drop what the last phase left on the card (one full model at a
+    time); returns the bytes still allocated."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def phase_full_width(arch, per_forward):
     """``arch`` at its full published config, random weights from seed 0:
     its main path (the serve CLI) with every launch count set to 0 just
-    before it and read just after, then a decode-step profile and the
-    ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at 2048 steps.
-    ``kernel`` launches once per layer in every prefill forward and
-    ``decode_launches_per_layer`` times per layer in a decode step."""
-    import gc
+    before it and read just after, then a decode-step profile, the
+    ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at 2048 steps, and
+    the peak device memory.  ``per_forward`` maps each kernel of the path
+    to its launches (per prefill forward, per decode step); every other
+    kernel must not launch.  Returns the serve run's launch counts."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
     from repro_torch.core.suite import get_benchmark
     from repro_torch.launch import serve
     cfg = get_arch(arch)
-    per_prefill = cfg.n_layers
-    per_decode = cfg.n_layers * decode_launches_per_layer
-    gc.collect()
-    torch.cuda.empty_cache()
+    left = _free_card()
+    check(left < 1e9, f"{arch}: {left} bytes still allocated before the phase")
     torch.cuda.reset_peak_memory_stats()
     argv = ["--arch", arch, "--full", "--requests", "8", "--slots", "4",
             "--prompt-len", "128", "--max-new", "16"]
@@ -412,49 +506,57 @@ def phase_full_width(arch, kernel, decode_launches_per_layer):
     served, tokens, steps, admits = (int(m.group(i)) for i in (1, 2, 5, 6))
     ttft_p50 = float(re.search(r"ttft_us\s+p50=(\d+)", text).group(1))
     tok_p50 = float(re.search(r"tok_lat_us\s+p50=(\d+)", text).group(1))
-    launches = counts[kernel]
-    expected = per_prefill * admits + per_decode * steps
+    rate = {k: per_forward.get(k, (0, 0)) for k in counts}
+    expected = {k: pre * admits + dec * steps for k, (pre, dec) in rate.items()}
     emit("serve_full", arch=arch, argv=argv, requests=served, tokens=tokens,
          tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
-         decode_steps=steps, admit_calls=admits, kernel=kernel, kernel_launches=counts,
+         decode_steps=steps, admit_calls=admits, kernel_launches=counts,
          expected_launches=expected)
     check(served == 8 and tokens == 8 * 16, f"{arch}: not every request was answered")
-    check(launches == expected and launches > 0,
-          f"{arch}: {launches} {kernel} launches for {admits} admission prefills and "
-          f"{steps} decode steps of {cfg.n_layers} layers (expected {expected})")
+    check(counts == expected and all(counts[k] > 0 for k in per_forward),
+          f"{arch}: launches {counts} for {admits} admission prefills and {steps} "
+          f"decode steps (expected {expected})")
+    freed = _free_card()                 # the CLI's model is gone
+    check(freed < 1e9, f"{arch}: {freed} bytes still allocated after the serve CLI")
 
     built = serve.built_for_cfg(cfg)
     phase_profile(arch, built.model)
-    for task, batch, donate, want in (("infer_prefill", 1, (), per_prefill),
-                                      ("infer_decode", 4, (2,), per_decode)):
+    for task, batch, donate, col in (("infer_prefill", 1, (), 0),
+                                     ("infer_decode", 4, (2,), 1)):
         step, args, mutable = get_benchmark(arch, task).make(
             batch=batch, seq=2048, built=built)
         # prefill is measured fresh every call (its cache copied); decode
-        # threads its cache, 7 steps from position 2048 (inside max_len 2056)
+        # threads its cache, 7 steps from position 2048 (inside max_len
+        # 2056; a ring of 2048 slots wraps at the first of them)
         fn = harness.prepare(step, donate, mutable=mutable)
         _reset_counts()
         out = fn(*args)
         torch.cuda.synchronize()
-        per_forward = _read_counts()[kernel]
+        got = _read_counts()
+        want = {k: pre_dec[col] for k, pre_dec in rate.items()}
         logits = out[0]
         check(tuple(logits.shape) == (batch, 1, cfg.vocab)
               and bool(torch.isfinite(logits.float()).all().item()),
               f"{arch} {task}: logits {tuple(logits.shape)} not finite or misshapen")
+        kv_slots = sorted({t.shape[-3] for p, t in _leaves(args[2]) if p[-1] == "k"})
         meas = harness.measure(f"{arch}/{task}/b{batch}/s2048", step, args, donate,
                                runs=5, warmup=1, jitted=fn)
         emit("step_full", arch=arch, task=task, batch=batch, seq=2048,
              median_us=meas.median_us, p10_us=meas.p10_us, p90_us=meas.p90_us,
-             kernel=kernel, launches_per_forward=per_forward)
-        check(per_forward == want,
-              f"{arch} {task}: {per_forward} {kernel} launches in one forward, expected {want}")
+             launches_per_forward=got, kv_cache_slots=kv_slots)
+        check(got == want, f"{arch} {task}: launches {got} in one forward, expected {want}")
         del step, args, out, fn
-    emit("memory", arch=arch, max_memory_allocated=torch.cuda.max_memory_allocated(),
+    peak = torch.cuda.max_memory_allocated()
+    emit("memory", arch=arch, max_memory_allocated=peak, limit=MEMORY_LIMIT,
          param_bytes=sum(p.numel() * p.element_size() for p in built.model.parameters()))
-    return launches
+    check(peak < MEMORY_LIMIT, f"{arch}: peak device memory {peak} bytes")
+    del built
+    _free_card()
+    return counts
 
 
-def _kernel_entry(name, source, replaces, launches, cases, main_case):
-    main = next(c for c in cases if c["case"] == main_case and c["dtype"] == "bf16")
+def _kernel_entry(name, source, replaces, launches, cases, main_case, dtype="bf16"):
+    main = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
     timed = [{k: c[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "max_abs_err")}
              for c in cases if "ms" in c]
@@ -462,7 +564,7 @@ def _kernel_entry(name, source, replaces, launches, cases, main_case):
             "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "timed_case": f"{main_case}/bf16", "cases": timed}
+            "timed_case": f"{main_case}/{dtype}", "cases": timed}
 
 
 def main():
@@ -477,17 +579,30 @@ def main():
     phase_build()
     fa_cases = phase_kernels()
     ssd_cases = phase_ssd_kernels()
+    rglru_cases = phase_rglru_kernels()
     phase_runner()
     phase_reference_check("gemma-2b")
     phase_reference_check("mamba2-2.7b")
-    fa_launches = phase_full_width("gemma-2b", "flash_attention", 1)
-    ssd_launches = phase_full_width("mamba2-2.7b", "ssd", 0)
+    # a prompt past the reduced window (64): the ring and its gather
+    phase_reference_check("recurrentgemma-9b", seq=88, max_len=100, prompt_len=40)
+    launches = {}
+    for arch, per_forward in (
+            ("gemma-2b", {"flash_attention": (18, 18)}),
+            ("mamba2-2.7b", {"ssd": (64, 0)}),
+            # 26 recurrent layers (RG-LRU on prefill only), 12 local attention
+            ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
+        launches[arch] = phase_full_width(arch, per_forward)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        _kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES, fa_launches, fa_cases,
-                      "gemma2b_prefill"),
-        _kernel_entry("ssd", SSD_SOURCE, SSD_REPLACES, ssd_launches, ssd_cases,
-                      "mamba2_prefill")],
+        _kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
+                      launches["gemma-2b"]["flash_attention"], fa_cases, "gemma2b_prefill"),
+        _kernel_entry("ssd", SSD_SOURCE, SSD_REPLACES, launches["mamba2-2.7b"]["ssd"],
+                      ssd_cases, "mamba2_prefill"),
+        _kernel_entry("rglru", RGLRU_SOURCE, RGLRU_REPLACES,
+                      launches["recurrentgemma-9b"]["rglru"], rglru_cases,
+                      "recurrentgemma_prefill", dtype="fp32")],
+        "recurrentgemma_flash_attention_launches":
+            launches["recurrentgemma-9b"]["flash_attention"],
         "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

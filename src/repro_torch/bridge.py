@@ -6,10 +6,14 @@ the port: ``params_from_numpy`` takes the tree as numpy arrays (the
 stacked layer axis included, bf16 as ``ml_dtypes.bfloat16`` or any float)
 and returns the port's ``Model`` holding those weights.
 ``cache_from_numpy`` / ``cache_to_numpy`` do the same for caches (the
-dense KV cache, the ssm family's conv/SSM state), so a test can compare
-caches as well as logits.  Every leaf takes the dtype its ``ParamDef``
-declares: the ssm family's ``A_log``, ``D``, ``dt_bias`` and cache ``ssm``
-stay fp32 whatever the compute dtype.  Nothing here imports JAX.
+dense KV cache, the ssm family's conv/SSM state, the hybrid family's
+``groups``/``tail`` tree of RG-LRU states and ring KV caches), so a test
+can compare caches as well as logits.  Both walk the model's own
+``ParamDef`` trees, so every family's layout converts alike, and every
+leaf takes the dtype its ``ParamDef`` declares: the ssm family's
+``A_log``, ``D``, ``dt_bias`` and cache ``ssm``, and the hybrid family's
+``lambda_p`` and cache ``h``, stay fp32 whatever the compute dtype.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 

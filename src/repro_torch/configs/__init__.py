@@ -13,3 +13,4 @@ from repro_torch.configs.base import (  # noqa: F401
 # the reference come with their families (ROADMAP Queue 1).
 from repro_torch.configs import gemma_2b  # noqa: F401
 from repro_torch.configs import mamba2_2p7b  # noqa: F401
+from repro_torch.configs import recurrentgemma_9b  # noqa: F401

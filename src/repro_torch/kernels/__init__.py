@@ -8,8 +8,10 @@ Each kernel package has:
               version for CPU tensors, nothing else
   ref.py    — the plain PyTorch version the kernel is held against
 
-Ported: flash attention (K1) and the Mamba-2 SSD chunked scan (K2).  The
-RG-LRU scan (K3) comes with recurrentgemma-9b (ROADMAP Queue 1, slice 3).
+Ported: flash attention (K1), the Mamba-2 SSD chunked scan (K2) and the
+RG-LRU scan (K3): every Pallas kernel of the reference has its
+counterpart.
 """
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.rglru.ops import rglru  # noqa: F401
 from repro_torch.kernels.ssd.ops import ssd  # noqa: F401

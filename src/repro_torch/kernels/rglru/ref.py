@@ -1,0 +1,80 @@
+"""The plain PyTorch version of the RG-LRU scan, and a sequential oracle.
+
+``rglru_blocked`` is the TPU kernel's own algorithm
+(``repro.kernels.rglru.kernel._rglru_kernel``) written in torch: inside a
+block of ``BLOCK_T`` steps, per feature lane,
+
+    h_i = exp(cum_i) h_prev + sum_{j<=i} exp(cum_i - cum_j) b_j,
+    cum = cumsum(log max(a, 1e-37)),
+
+an (L x L) masked decay-weighted sum, with the state carried from block to
+block.  The CUDA kernel scans step by step instead, so holding one against
+the other on the card compares two formulations.  The CPU path of
+``ops.rglru`` and the tests use it; nothing on the card's main path does.
+
+``rglru_sequential`` is the per-step recurrence of
+``repro.kernels.rglru.ref.rglru_ref``, kept for the tests.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+#: steps per block, the TPU kernel's default ``block_t``
+BLOCK_T = 16
+
+
+def gated_input(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """b = sqrt(max(1 - a^2, 1e-12)) * x in fp32 (``rglru/ops.py:50``)."""
+    a = a.float()
+    return torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * x.float()
+
+
+def rglru_blocked(x: torch.Tensor, a: torch.Tensor,
+                  init_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x, a (B, S, D), ``init_state`` (B, D) fp32 or None (zeros) -> h
+    (B, S, D) fp32 with h_t = a_t h_{t-1} + sqrt(1 - a_t^2) x_t.  S is
+    padded to a multiple of the block with identity steps (a = 1, b = 0)."""
+    B, S, D = x.shape
+    b = gated_input(x, a)
+    af = a.float()
+    L = BLOCK_T
+    pad = (L - S % L) % L
+    if pad:
+        af = F.pad(af, (0, 0, 0, pad), value=1.0)
+        b = F.pad(b, (0, 0, 0, pad))
+    nb = (S + pad) // L
+    cum = torch.cumsum(torch.log(torch.clamp(af, min=1e-37)).reshape(B, nb, L, D), dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B, nb, i, j, D)
+    lower = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+    # the mask first: exp(seg) above the diagonal may be inf, and inf * 0
+    # would be NaN
+    w = torch.where(lower[:, :, None], torch.exp(seg), 0.0)
+    local = torch.einsum("bnijd,bnjd->bnid", w, b.reshape(B, nb, L, D))
+    decay = torch.exp(cum)
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    out = []
+    for n in range(nb):
+        hb = local[:, n] + decay[:, n] * h[:, None]
+        h = hb[:, -1]
+        out.append(hb)
+    if not out:
+        return b.new_zeros((B, 0, D))
+    return torch.cat(out, dim=1)[:, :S]
+
+
+def rglru_sequential(a: torch.Tensor, b: torch.Tensor,
+                     init_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a, b (B, S, D) -> h fp32 with h_t = a_t h_{t-1} + b_t, h_{-1} =
+    ``init_state`` (zeros when None)."""
+    B, S, D = a.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=a.device)
+         if init_state is None else init_state.float())
+    hs = []
+    for t in range(S):
+        h = a[:, t].float() * h + b[:, t].float()
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else a.new_zeros((B, 0, D), dtype=torch.float32)

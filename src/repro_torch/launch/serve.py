@@ -5,7 +5,8 @@ A request queue with virtual-time arrivals, a batched prefill admission
 stage, and a batched decode loop with per-slot completion and refill.  It
 runs reduced configs on the CPU (tests) and full configs on the card
 through the same code; on the card every attention layer is the
-hand-written flash-attention kernel.
+hand-written flash-attention kernel, and every prefill of a Mamba-2 or
+RG-LRU layer its hand-written scan kernel.
 
 Admission: each loop iteration admits one *wave* — every waiting request
 paired with a free slot — through one prefill call per prompt-length

@@ -1,5 +1,5 @@
 """Shared building blocks (port of ``repro.models.layers``: the dense subset
-and the causal conv).
+with the local ring-buffer KV cache, and the causal conv).
 
 Parameters are *declared* through ``ParamDef`` trees (shape, dtype, axes,
 init) exactly as in the reference, so the port's trees have the
@@ -8,15 +8,17 @@ explicit ``torch.Generator``.  The layer functions take their parameters
 as a mapping ``p`` (a dict or an ``nn.ParameterDict``), like the
 reference's param pytrees.
 
-What gemma-2b and mamba2-2.7b do not use is left out and raises
-``NotImplementedError`` naming the ROADMAP item: the local ring-buffer
-cache (gemma3, recurrentgemma), ``cross_kv`` (whisper), ``qk_norm``
-(gemma3) and ``opt_bf16_probs``.
+What gemma-2b, mamba2-2.7b and recurrentgemma-9b do not use is left out
+and raises ``NotImplementedError`` naming the ROADMAP item: ``cross_kv``
+(whisper), ``qk_norm`` (gemma3) and ``opt_bf16_probs``.
 
-The KV cache is updated in place: ``_row_update`` writes into the cache
-tensors it is given, and ``gqa_attention`` advances the cache's ``len``
-in place.  That is the port's counterpart of the reference's buffer
-donation; callers that need the old cache keep a copy.
+The KV cache is updated in place: ``_row_update`` and ``_ring_store``
+write into the cache tensors they are given, and ``gqa_attention``
+advances the cache's ``len`` in place.  That is the port's counterpart of
+the reference's buffer donation; callers that need the old cache keep a
+copy.  A local-attention layer whose cache holds exactly ``window`` slots
+keeps it as a ring buffer (recurrentgemma's attention layers once
+``max_len`` exceeds the window).
 """
 from __future__ import annotations
 
@@ -197,6 +199,31 @@ def _row_update(cache_arr: torch.Tensor, fresh: torch.Tensor,
     return cache_arr
 
 
+def _ring_store(ring: torch.Tensor, fresh: torch.Tensor, S: int,
+                seq_lens: Optional[torch.Tensor]) -> None:
+    """Write a prefill's keys or values ``fresh`` (B, S, ...) into the ring
+    buffer ``ring`` (B, W, ...) in place, position p at slot p % W.
+
+    Under ``seq_lens`` (B,), slot j of row r holds the highest valid
+    position congruent to j mod W (the roll below when the row is exactly
+    full); rows shorter than the window leave slots >= seq_lens[r] holding
+    whatever position the clip lands on, which ``kv_len`` masks at
+    decode."""
+    B, W = ring.shape[:2]
+    if seq_lens is not None:
+        j = torch.arange(W, device=ring.device)[None, :]
+        lv = seq_lens.long()[:, None]
+        # floor division of a negative numerator, as jnp's // does
+        src = torch.clamp(j + W * torch.div(lv - 1 - j, W, rounding_mode="floor"), 0, S - 1)
+        rows = torch.arange(B, device=ring.device)[:, None]
+        ring.copy_(fresh[rows, src].to(ring.dtype))
+    elif S >= W:
+        ring.copy_(torch.roll(fresh[:, -W:], S % W, dims=1).to(ring.dtype))
+    else:
+        ring[:, :S] = fresh.to(ring.dtype)
+        ring[:, S:] = 0
+
+
 def gqa_attention(
     p: Mapping[str, torch.Tensor],
     x: torch.Tensor,                      # (B, S, E)
@@ -236,21 +263,40 @@ def gqa_attention(
     if cache is not None:
         # per-row positions: "len" is a (B,) vector, so each row (serve
         # slot) writes and attends at its own offset
-        if mask_type == "local" and 0 < window == cache["k"].shape[1]:
-            raise NotImplementedError("the local ring-buffer KV cache is not "
-                                      "ported yet (ROADMAP Queue 1, slice 3: "
-                                      "recurrentgemma-9b)")
         idx = cache["len"].clone()
+        Wc = cache["k"].shape[1]
+        ring = mask_type == "local" and Wc == window and window > 0
         # padded batched prefill: each row's valid prefix ends at
         # seq_lens[r]; keys written past it sit at positions the position
         # masks exclude for every valid query, and kv_len masks them later
         s_eff = S if seq_lens is None else seq_lens
-        _row_update(cache["k"], k, idx)
-        _row_update(cache["v"], v, idx)
-        cache["len"].copy_(idx + s_eff)
-        k, v = cache["k"].to(cdt), cache["v"].to(cdt)
-        kv_len = idx + s_eff
-        q_offset = idx
+        if ring and S > 1:
+            # prefill a ring buffer: attend over the fresh full-length k/v
+            # with the local mask, then store the last W tokens at slots
+            # pos % W (softmax is order-free; RoPE already applied).  What
+            # the cache held is not read: the serve engine prefills into a
+            # fresh mini cache
+            _ring_store(cache["k"], k, S, seq_lens)
+            _ring_store(cache["v"], v, S, seq_lens)
+            cache["len"].copy_(idx + s_eff)
+            q_offset = idx
+        elif ring:
+            # decode: write at slot idx % W; all live entries are in-window
+            slot = torch.remainder(idx, Wc)
+            _row_update(cache["k"], k, slot)
+            _row_update(cache["v"], v, slot)
+            cache["len"].copy_(idx + S)
+            k, v = cache["k"].to(cdt), cache["v"].to(cdt)
+            kv_len = torch.clamp(idx + S, max=Wc)
+            mask_type = "full"   # ring membership IS the window mask
+            q_offset = idx
+        else:
+            _row_update(cache["k"], k, idx)
+            _row_update(cache["v"], v, idx)
+            cache["len"].copy_(idx + s_eff)
+            k, v = cache["k"].to(cdt), cache["v"].to(cdt)
+            kv_len = idx + s_eff
+            q_offset = idx
 
     scale = cfg.softmax_scale if cfg.softmax_scale else None
     out = attention(q, k, v, mask_type=mask_type, window=window,

@@ -1,4 +1,5 @@
-"""The model (port of ``repro.models.model``: the dense and ssm branches).
+"""The model (port of ``repro.models.model``: the dense, ssm and hybrid
+branches).
 
 ``Model`` is an ``nn.Module`` that holds its weights:
 
@@ -9,17 +10,25 @@
   decode_step(tokens, cache)                one token with cache
 
 The weights are declared as the reference declares them, with the stacked
-layer axis, and materialised once; each layer's module (``Block`` for the
-dense family, ``MambaBlock`` for the ssm family) then holds views of its
-slice, and the layers run as a Python loop.  The caches keep the
-reference's stacked layout — ``{"blocks": {"k", "v": (L, B, max, K, D),
-"len": (L, B)}}`` for dense, ``{"blocks": {"conv": (L, B, W-1, C), "ssm":
-(L, B, H, P, N), "len": (L, B)}}`` for ssm — and are updated in place (the
-reference donates them).
+layer axes, and materialised once; each layer's module (``Block`` for an
+attention layer, ``MambaBlock`` for the ssm family, ``RecBlock`` for the
+hybrid family's recurrent layers) then holds views of its slice, and the
+layers run as a Python loop in the reference's order.  The caches keep the
+reference's stacked layout and are updated in place (the reference
+donates them):
 
-The dense family without a local window and the ssm family (mamba2) are
-ported; the others come with their slices (ROADMAP Queue 1).  ``loss`` and
-``remat`` come with training.
+  dense   {"blocks": {"k", "v": (L, B, max, K, D), "len": (L, B)}}
+  ssm     {"blocks": {"conv": (L, B, W-1, C), "ssm": (L, B, H, P, N), "len"}}
+  hybrid  {"groups": {"rec": {"conv", "h", "len"} with prefix (G, pattern_rec),
+                      "attn": {"k", "v", "len"} with prefix (G,)},
+           "tail": {"conv", "h", "len"} with prefix (tail,)}
+
+The hybrid family's attention layers are local: their KV cache is a ring
+of ``local_window`` slots once ``max_len`` exceeds the window.
+
+The dense family without a local window, the ssm family (mamba2) and the
+hybrid family (recurrentgemma) are ported; the others come with their
+slices (ROADMAP Queue 1).  ``loss`` and ``remat`` come with training.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import ssm
+from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import ParamDef
 
 
@@ -44,20 +53,47 @@ def _attn_block_defs(cfg, lp):
             "ln2": _norm_def(cfg, lp), "mlp": L.ffn_defs(cfg, None, lp)}
 
 
-#: ROADMAP slice of each family the port does not run yet
-_UNPORTED = {"hybrid": "slice 3: recurrentgemma-9b"}
+def _rec_block_defs(cfg, lp):
+    return {"ln1": _norm_def(cfg, lp), "rec": rglru.rglru_defs(cfg, lp),
+            "ln2": _norm_def(cfg, lp), "mlp": L.ffn_defs(cfg, None, lp)}
+
+
+def _kv_cache_defs(cfg, batch: int, max_len: int, kind: str, lp=()):
+    la = ("layers",) * len(lp)
+    size = max_len
+    if kind == "local" and 0 < cfg.local_window < max_len:
+        size = cfg.local_window   # ring buffer
+    kv = lp + (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    axes = la + ("cache_batch", "cache_seq", "cache_heads", None)
+    cdt = cfg.compute_dtype
+    return {
+        "k": ParamDef(kv, axes, cdt, "zeros"),
+        "v": ParamDef(kv, axes, cdt, "zeros"),
+        # per-row position vector: each batch row (serve slot) decodes
+        # at its own offset, so one decode batch can mix prompt lengths
+        "len": ParamDef(lp + (batch,), la + ("cache_batch",), torch.int32, "zeros"),
+    }
+
+
+def _hybrid_split(cfg):
+    """(groups G, tail layers) of the hybrid stack: G x (pattern_rec
+    recurrent layers, one attention layer), then the tail's recurrent
+    layers."""
+    G = cfg.n_layers // (cfg.pattern_rec + 1)
+    return G, cfg.n_layers - G * (cfg.pattern_rec + 1)
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
-            f"Queue 1, {_UNPORTED.get(cfg.family, 'slice 5')})")
-    if cfg.local_window > 0 or cfg.global_every > 0:
+            f"Queue 1, slice 5)")
+    if cfg.global_every > 0 or (cfg.local_window > 0 and cfg.family != "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: local/global attention patterns and ring caches "
-            f"are not ported yet (ROADMAP Queue 1, slice 5: gemma3-12b)")
+            f"{cfg.name}: local/global attention patterns of the dense and "
+            f"moe families are not ported yet (ROADMAP Queue 1, slice 5: "
+            f"gemma3-12b)")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA is not ported yet "
                                   f"(ROADMAP Queue 1, slice 5: deepseek-v2)")
@@ -65,23 +101,33 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: untied heads and learned positions are not ported "
             f"yet (ROADMAP Queue 1, slice 5)")
+    if cfg.family == "hybrid" and cfg.opt_gate_bf16:
+        raise NotImplementedError(
+            f"{cfg.name}: opt_gate_bf16 (bf16 RG-LRU gate products) is not "
+            f"ported yet (ROADMAP Queue 1, slice 7 measurement/perf knobs)")
 
 
 def param_defs(cfg) -> Dict[str, Any]:
-    """The reference's param tree for the dense and ssm families: stacked
-    blocks."""
+    """The reference's param tree: stacked ``blocks`` for the dense and
+    ssm families, ``groups``/``tail`` for the hybrid family."""
     check_supported(cfg)
-    lp = (cfg.n_layers,)
-    if cfg.family == "ssm":
-        blocks = {"ln": _norm_def(cfg, lp), "mix": ssm.mamba2_defs(cfg, lp)}
-    else:
-        blocks = _attn_block_defs(cfg, lp)
-    return {
+    d = {
         "embed": ParamDef((cfg.vocab, cfg.d_model), ("w_vocab", "w_embed_pod"),
                           cfg.param_dtype, "embed"),
         "final_norm": _norm_def(cfg),
-        "blocks": blocks,
     }
+    lp = (cfg.n_layers,)
+    if cfg.family == "ssm":
+        d["blocks"] = {"ln": _norm_def(cfg, lp), "mix": ssm.mamba2_defs(cfg, lp)}
+    elif cfg.family == "hybrid":
+        G, tail = _hybrid_split(cfg)
+        d["groups"] = {"rec": _rec_block_defs(cfg, (G, cfg.pattern_rec)),
+                       "attn": _attn_block_defs(cfg, (G,))}
+        if tail:
+            d["tail"] = _rec_block_defs(cfg, (tail,))
+    else:
+        d["blocks"] = _attn_block_defs(cfg, lp)
+    return d
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -89,12 +135,16 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One dense layer: RMSNorm -> attention -> RMSNorm -> FFN, with
-    residuals.  ``p`` is the layer's (unstacked) slice of the param tree."""
+    """One attention layer: RMSNorm -> attention -> RMSNorm -> FFN, with
+    residuals.  ``p`` is the layer's (unstacked) slice of the param tree;
+    ``kind`` is "global" (causal) or "local" (sliding window of
+    ``cfg.local_window``, a ring cache)."""
 
-    def __init__(self, cfg, p: Mapping[str, Any]):
+    def __init__(self, cfg, p: Mapping[str, Any], kind: str = "global"):
         super().__init__()
         self.cfg = cfg
+        self.mask_type = "local" if kind == "local" else "causal"
+        self.window = cfg.local_window if kind == "local" else 0
         self.ln1 = _frozen(p["ln1"])
         self.attn = nn.ParameterDict({k: _frozen(v) for k, v in p["attn"].items()})
         self.ln2 = _frozen(p["ln2"])
@@ -105,9 +155,32 @@ class Block(nn.Module):
                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         h = L.rms_norm(x, self.ln1, cfg.norm_eps)
-        h, _ = L.gqa_attention(self.attn, h, cfg, mask_type="causal",
-                               positions=positions, cache=cache,
-                               seq_lens=seq_lens)
+        h, _ = L.gqa_attention(self.attn, h, cfg, mask_type=self.mask_type,
+                               window=self.window, positions=positions,
+                               cache=cache, seq_lens=seq_lens)
+        x = x + h
+        h = L.rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + L.ffn(self.mlp, h, cfg)
+
+
+class RecBlock(nn.Module):
+    """One recurrent layer of the hybrid family: RMSNorm -> RG-LRU block ->
+    residual -> RMSNorm -> FFN -> residual."""
+
+    def __init__(self, cfg, p: Mapping[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _frozen(p["ln1"])
+        self.rec = nn.ParameterDict({k: _frozen(v) for k, v in p["rec"].items()})
+        self.ln2 = _frozen(p["ln2"])
+        self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in p["mlp"].items()})
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[dict] = None,
+                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        h, _ = rglru.rglru_block(self.rec, h, cfg, cache=cache, seq_lens=seq_lens)
         x = x + h
         h = L.rms_norm(x, self.ln2, cfg.norm_eps)
         return x + L.ffn(self.mlp, h, cfg)
@@ -131,15 +204,37 @@ class MambaBlock(nn.Module):
         return x + h
 
 
-def _layer(tree, i: int):
+def _layer(tree, i):
+    """The slice ``i`` (an int or a tuple over the stacked axes) of every
+    leaf: views, not copies."""
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
+def _layout(cfg):
+    """The layers in the reference's run order, as (path of the stacked
+    subtree, index into its layer axes, module kind)."""
+    if cfg.family != "hybrid":
+        kind = "mamba" if cfg.family == "ssm" else "global"
+        return [(("blocks",), (i,), kind) for i in range(cfg.n_layers)]
+    G, tail = _hybrid_split(cfg)
+    out = []
+    for g in range(G):
+        out += [(("groups", "rec"), (g, j), "rec") for j in range(cfg.pattern_rec)]
+        out.append((("groups", "attn"), (g,), "local"))
+    return out + [(("tail",), (i,), "rec") for i in range(tail)]
+
+
+def _subtree(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 class Model(nn.Module):
-    """The dense or ssm model over a param tree in the reference's layout
-    (the ``blocks`` leaves carry the stacked layer axis)."""
+    """The dense, ssm or hybrid model over a param tree in the reference's
+    layout (the stacked leaves carry their layer axes)."""
 
     def __init__(self, cfg, params: Mapping[str, Any]):
         super().__init__()
@@ -147,9 +242,17 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _frozen(params["embed"])
         self.final_norm = _frozen(params["final_norm"])
-        block = MambaBlock if cfg.family == "ssm" else Block
-        self.blocks = nn.ModuleList(
-            block(cfg, _layer(params["blocks"], i)) for i in range(cfg.n_layers))
+        self._layout = _layout(cfg)
+        blocks = []
+        for path, idx, kind in self._layout:
+            p = _layer(_subtree(params, path), idx)
+            if kind == "mamba":
+                blocks.append(MambaBlock(cfg, p))
+            elif kind == "rec":
+                blocks.append(RecBlock(cfg, p))
+            else:
+                blocks.append(Block(cfg, p, kind))
+        self.blocks = nn.ModuleList(blocks)
 
     @property
     def device(self) -> torch.device:
@@ -179,11 +282,10 @@ class Model(nn.Module):
         return logits
 
     def _run_layers(self, x, positions, cache, seq_lens=None):
-        stacked = cache["blocks"] if cache is not None else None
-        for i, blk in enumerate(self.blocks):
+        for blk, (path, idx, _) in zip(self.blocks, self._layout):
             # per-layer views of the stacked cache: the in-place writes of
             # the layer land in the stacked tensors
-            ci = None if stacked is None else {k: t[i] for k, t in stacked.items()}
+            ci = None if cache is None else _layer(_subtree(cache, path), idx)
             x = blk(x, positions=positions, cache=ci, seq_lens=seq_lens)
         return x
 
@@ -199,19 +301,18 @@ class Model(nn.Module):
 
     def cache_defs(self, batch: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg
-        lp = (cfg.n_layers,)
         if cfg.family == "ssm":   # a fixed-size state: max_len is unused
-            return {"blocks": ssm.mamba2_cache_defs(cfg, batch, lp)}
-        kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        axes = ("layers", "cache_batch", "cache_seq", "cache_heads", None)
-        cdt = cfg.compute_dtype
-        return {"blocks": {
-            "k": ParamDef(kv, axes, cdt, "zeros"),
-            "v": ParamDef(kv, axes, cdt, "zeros"),
-            # per-row position vector: each batch row (serve slot) decodes
-            # at its own offset, so one decode batch can mix prompt lengths
-            "len": ParamDef(lp + (batch,), ("layers", "cache_batch"), torch.int32, "zeros"),
-        }}
+            return {"blocks": ssm.mamba2_cache_defs(cfg, batch, (cfg.n_layers,))}
+        if cfg.family == "hybrid":
+            G, tail = _hybrid_split(cfg)
+            d = {"groups": {
+                "rec": rglru.rglru_cache_defs(cfg, batch, (G, cfg.pattern_rec)),
+                "attn": _kv_cache_defs(cfg, batch, max_len, "local", (G,))}}
+            if tail:
+                d["tail"] = rglru.rglru_cache_defs(cfg, batch, (tail,))
+            return d
+        return {"blocks": _kv_cache_defs(cfg, batch, max_len, "global",
+                                         (cfg.n_layers,))}
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         return L.map_defs(
@@ -253,9 +354,22 @@ class Model(nn.Module):
 
     @staticmethod
     def _cache_len(cache: Mapping[str, Any]) -> torch.Tensor:
-        """The per-row position vector (B,) of the first layer (every
-        layer's counter advances identically)."""
-        return cache["blocks"]["len"][0]
+        """The per-row position vector (B,) from the first "len" leaf in
+        the reference's flatten order (sorted keys: ``blocks.len``, or the
+        hybrid family's ``groups.attn.len``); every layer's counter
+        advances identically."""
+        def first_len(tree):
+            for k in sorted(tree):
+                v = tree[k]
+                if k == "len" and isinstance(v, torch.Tensor):
+                    return v
+                if isinstance(v, Mapping):
+                    found = first_len(v)
+                    if found is not None:
+                        return found
+            return None
+        x = first_len(cache)
+        return x.reshape(-1, x.shape[-1])[0]
 
 
 def build_model(cfg, *, device: DeviceLike = "cuda", seed: int = 0) -> Model:

@@ -153,12 +153,46 @@ def test_unported_layer_features_raise_naming_the_roadmap():
     x = torch.zeros(1, 4, tcfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         L.gqa_attention(p, x, tcfg, mask_type="full", cross_kv=(x, x))
-    ring = {"k": torch.zeros(1, 8, 1, 32), "v": torch.zeros(1, 8, 1, 32),
-            "len": torch.zeros(1, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ring"):
-        L.gqa_attention(p, x, tcfg, mask_type="local", window=8, cache=ring)
-    with pytest.raises(NotImplementedError, match="slice 3: recurrentgemma-9b"):
-        L.gqa_attention(p, x, tcfg, mask_type="local", window=8, cache=ring)
     q = torch.zeros(1, 2, 2, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         L.attention(q, q, q, bf16_probs=True)
+
+
+@pytest.mark.parametrize("S,seq_lens", [(24, None), (12, None), (24, (24, 13))])
+def test_ring_cache_matches_reference_through_the_wrap(S, seq_lens):
+    """A local layer whose cache holds exactly ``window`` (16) slots keeps a
+    ring: prefill past the window (the roll), inside it (zero padding) and
+    ragged (the per-row gather), then 6 decode steps at slot ``len % 16``
+    that wrap round the ring; outputs, k/v and len agree."""
+    rcfg, tcfg = _cfgs()
+    rp = RL.init_tree(RL.gqa_defs(rcfg), jax.random.key(5))
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), rp)
+    rng = np.random.default_rng(5)
+    B, W = 2, 16
+    shape = (B, W, tcfg.n_kv_heads, tcfg.head_dim)
+    jcache = {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
+              "len": jnp.zeros(B, jnp.int32)}
+    tcache = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+              "len": torch.zeros(B, dtype=torch.int32)}
+    lens = None if seq_lens is None else np.asarray(seq_lens, np.int32)
+    x = _rand(rng, B, S, rcfg.d_model)
+    kw = dict(mask_type="local", window=W)
+    jy, jcache = RL.gqa_attention(rp, jnp.asarray(x), rcfg, cache=jcache,
+                                  seq_lens=None if lens is None else jnp.asarray(lens), **kw)
+    ty, tcache = L.gqa_attention(tp, torch.from_numpy(x), tcfg, cache=tcache,
+                                 seq_lens=None if lens is None else torch.from_numpy(lens), **kw)
+    np.testing.assert_allclose(ty.numpy(), _np(jy), **TOL)
+    pos = np.full(B, S, np.int32) if lens is None else lens.copy()
+    for _ in range(6):
+        x1 = _rand(rng, B, 1, rcfg.d_model)
+        jy, jcache = RL.gqa_attention(rp, jnp.asarray(x1), rcfg, cache=jcache,
+                                      positions=jnp.asarray(pos[:, None]), **kw)
+        ty, tcache = L.gqa_attention(tp, torch.from_numpy(x1), tcfg, cache=tcache,
+                                     positions=torch.from_numpy(pos[:, None]), **kw)
+        np.testing.assert_allclose(ty.numpy(), _np(jy), **TOL)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(tcache[name].numpy(), _np(jcache[name]), **TOL)
+        np.testing.assert_array_equal(tcache["len"].numpy(), np.asarray(jcache["len"]))
+        pos += 1
+    np.testing.assert_array_equal(tcache["len"].numpy(), pos)
+    assert tuple(tcache["k"].shape) == shape     # still W slots, written in place

@@ -125,7 +125,7 @@ def test_build_model_is_seeded_and_params_match_reference_tree():
         params_from_numpy(bad, cfg, "cpu")
 
 
-@pytest.mark.parametrize("change", [dict(family="hybrid"), dict(local_window=64),
+@pytest.mark.parametrize("change", [dict(global_every=2), dict(local_window=64),
                                     dict(use_mla=True), dict(tie_embeddings=False)])
 def test_unported_configs_raise_naming_the_roadmap(change):
     cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), **change)
