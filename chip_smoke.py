@@ -13,9 +13,13 @@ on small inputs, then serves and steps the three models at their full
 published widths through the user entry points, one model on the card at
 a time.  Each model's main path runs with every kernel's launch count set
 to 0 just before it and read just after: every attention call goes
-through the flash-attention kernel, every prefill of every Mamba-2 layer
-through the SSD kernel, every prefill of every RG-LRU layer through the
-RG-LRU kernel.  One JSON line per phase; the last line is the
+through the flash-attention kernel (full-width prefill through its
+tensor-core variant, decode through its split-KV variant: counted by
+variant), every prefill of every Mamba-2 layer through the SSD kernel,
+every prefill of every RG-LRU layer through the RG-LRU kernel.  Timed
+kernel cases report the variant, achieved TFLOP/s and GB/s, the share of
+the bound and, for short calls, the device time from ``torch.profiler``.
+One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
 outside a checkout of the repository.
@@ -103,7 +107,12 @@ def phase_build():
             f.result()
     wall = round(time.perf_counter() - t0, 3)
     for name, mod, source, smem in (
-            ("flash_attention", fa, FA_SOURCE, dict(dynamic_smem_bytes_d256=fa.shared_memory_bytes(256))),
+            ("flash_attention", fa, FA_SOURCE, dict(
+                dynamic_smem_bytes_d256=fa.shared_memory_bytes(256),
+                dynamic_smem_bytes_tc_d256_two_warpgroups=fa.shared_memory_bytes(
+                    256, "tc", warpgroups=2),
+                dynamic_smem_bytes_split_d256_16_rows_bf16=fa.shared_memory_bytes(
+                    256, "split", rows=16))),
             ("ssd", sk, SSD_SOURCE, dict(dynamic_smem_bytes_p64_n128=sk.shared_memory_bytes(64, 128),
                                          dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16))),
             ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0))):
@@ -115,6 +124,26 @@ def phase_build():
              nvcc_seconds=mod.build_info.get("seconds"), registers=regs,
              spill_store_bytes=[int(x) for x in spills], static_smem_bytes=static_smem,
              **smem, ptxas=ptxas.splitlines())
+        if name == "flash_attention":   # the redesigned variants must not spill
+            spilled = {f: n for f, n in _spills_by_function(ptxas).items()
+                       if n and any(v in f for v in ("fa_tc_kernel", "fa_split_kernel",
+                                                     "fa_decode_combine"))}
+            check(not spilled, f"flash attention variants spill registers: {spilled}")
+
+
+def _spills_by_function(ptxas):
+    """Spill-store bytes of each kernel in an ``nvcc -Xptxas -v`` report."""
+    out, fn = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            out[fn] += int(m.group(1))
+    return out
 
 
 def _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev):
@@ -135,19 +164,41 @@ def _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev):
 def _bound(dtype, B, Sq, H, K, D, vis):
     """Least time for this call's work: the visible (query, key) pairs'
     FLOPs at the type's peak, or the bytes of q, the output and the keys
-    and values some query sees, at the memory rate."""
+    and values some query sees, at the memory rate.  Returns (ms, by,
+    flops, bytes)."""
     elem = 2 if dtype == "bf16" else 4
     flops = 4.0 * D * H * int(vis.sum().item())
     kv_rows = int(vis.any(dim=1).sum().item())
     nbytes = elem * (2 * B * Sq * H * D + 2 * kv_rows * K * D)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
+def device_ms(fn, name="", iters=20):
+    """Device time per call of the kernels whose names contain ``name``
+    (every kernel by default), from ``torch.profiler`` over ``iters``
+    calls: without the host's dispatch gaps that back-to-back timing by
+    events includes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / 1e3 / iters if us else "not measured"
 
 
 def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal",
                 window=0, prefix_len=0, q_offset=0, kv_len=None, softcap=0.0):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, plan
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
@@ -155,21 +206,35 @@ def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal"
     g = torch.Generator().manual_seed(0)
     q, k, v = [torch.randn(s, generator=g).to(dev, tdt)
                for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D))]
+    # per-row offsets live on the card, as the model's cache lengths do
+    q_offset, kv_len = [x.to(dev) if isinstance(x, torch.Tensor) else x
+                        for x in (q_offset, kv_len)]
     kw = dict(mask_type=mask_type, window=window, prefix_len=prefix_len,
               q_offset=q_offset, kv_len=kv_len, softcap=softcap)
+    variant, n_split = plan(B, Sq, Sk, H, K, D, tdt)
+    before = flash_attention_cuda.launches_by_variant[variant]
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    check(flash_attention_cuda.launches_by_variant[variant] == before + 1,
+          f"{name}: the {variant} variant did not launch")
     want = attention_ref(q, k, v, **kw)
     err = (out.float() - want.float()).abs().max().item()
     res = dict(case=name, dtype=dtype, shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, K=K, D=D),
-               mask=mask_type, max_abs_err=err, tol=TOL[dtype],
-               finite=bool(torch.isfinite(out).all().item()))
+               mask=mask_type, variant=variant, n_split=n_split, max_abs_err=err,
+               tol=TOL[dtype], finite=bool(torch.isfinite(out).all().item()))
     check(res["finite"] and err <= TOL[dtype],
           f"kernel disagrees with its plain version: {res}")
     if timed:
         vis = _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev)
-        res["bound_ms"], res["bound_by"] = _bound(dtype, B, Sq, H, K, D, vis)
-        res["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw))
+        res["bound_ms"], res["bound_by"], flops, nbytes = _bound(dtype, B, Sq, H, K, D, vis)
+        res["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw), iters=50, warmup=5)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        res["gbytes_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        if res["ms"] < 1.0:   # small: host dispatch may hide in back-to-back event timing
+            res["device_ms"] = device_ms(lambda: flash_attention(q, k, v, **kw), "fa_")
+            if isinstance(res["device_ms"], float):
+                res["bound_share_device"] = res["bound_ms"] / res["device_ms"]
         res["plain_ms"] = time_ms(lambda: attention_ref(q, k, v, **kw), iters=3, warmup=1)
         # yardstick only, never called by the port: one library call on the
         # same inputs (kv heads repeated, explicit mask)
@@ -177,8 +242,11 @@ def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal"
         kt = k.transpose(1, 2).repeat_interleave(H // K, dim=1)
         vt = v.transpose(1, 2).repeat_interleave(H // K, dim=1)
         am = vis[:, None]
-        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=am, scale=D ** -0.5), iters=5, warmup=2)
+        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, attn_mask=am, scale=D ** -0.5)
+        res["library_ms"] = time_ms(sdpa, iters=20, warmup=3)
+        if "device_ms" in res:
+            res["library_device_ms"] = device_ms(sdpa)
         res["library"] = "torch.nn.functional.scaled_dot_product_attention"
     emit("kernel_vs_plain", **res)
     return res
@@ -211,6 +279,22 @@ def phase_kernels():
         cases.append(kernel_case("serve_decode", dtype, 4, 1, 144, 8, 1, 256,
                                  timed=True, q_offset=rows(128, 131, 140, 143),
                                  kv_len=rows(129, 132, 141, 144)))
+        # recurrentgemma-9b full width: 16 query heads over 1 kv head of 256;
+        # prefill with the 2048 local window, decode over the 2048-slot ring
+        # (``full`` mask: ring membership is the window)
+        cases.append(kernel_case("recurrentgemma_prefill", dtype, 1, 2048, 2048, 16, 1, 256,
+                                 timed=True, mask_type="local", window=2048))
+        cases.append(kernel_case("recurrentgemma_decode", dtype, 4, 1, 2048, 16, 1, 256,
+                                 timed=True, mask_type="full",
+                                 q_offset=rows(2048, 3000, 100, 2047),
+                                 kv_len=rows(2048, 2048, 101, 2048)))
+        # the split variant where its shares are empty or one tile long
+        kv = rows(1, 63, 64, 65, 2056)
+        cases.append(kernel_case("split_edges", dtype, 5, 1, 2056, 8, 1, 256, timed=True,
+                                 q_offset=kv - 1, kv_len=kv))
+    # the tensor-core variant at the smaller head dims it instantiates
+    for D in (64, 128):
+        cases.append(kernel_case(f"tc_d{D}", "bf16", 2, 2048, 2048, 16, 2, D, timed=True))
     return cases
 
 
@@ -410,10 +494,18 @@ def _counters():
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
+    by_variant = _counters()["flash_attention"].launches_by_variant
+    for name in by_variant:
+        by_variant[name] = 0
 
 
 def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _read_variants():
+    """Flash-attention launches by variant (tc, split, simt)."""
+    return dict(_counters()["flash_attention"].launches_by_variant)
 
 
 def phase_profile(arch, model, steps=5):
@@ -456,6 +548,37 @@ def phase_profile(arch, model, steps=5):
                       for e in top])
 
 
+def _profile_step(arch, task, call):
+    """Device time of one step by kernel (``torch.profiler``): the total,
+    the top kernels, and the share of each of the port's kernels (the
+    flash-attention variants, SSD, RG-LRU) by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
+            for name, key in (("flash_tc", "fa_tc_kernel"), ("flash_split", "split::fa_split"),
+                              ("flash_split_mma", "fa_split_mma"),
+                              ("flash_combine", "fa_decode_combine"),
+                              ("flash_simt", "fa_kernel<"), ("ssd", "ssd_kernel"),
+                              ("rglru", "rglru_kernel"))}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    emit("profile_step_full", arch=arch, task=task, wall_ms_profiled=wall_ms,
+         device_ms=dev_ms if dev_ms else "not measured",
+         device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
+         port_kernels_ms={k: v for k, v in ours.items() if v},
+         port_kernels_share={k: v / dev_ms for k, v in ours.items() if v and dev_ms},
+         top_kernels=[dict(name=e.key[:80], calls=e.count,
+                           ms=e.self_device_time_total / 1e3) for e in top])
+
+
 def _free_card():
     """Drop what the last phase left on the card (one full model at a
     time); returns the bytes still allocated."""
@@ -481,7 +604,8 @@ def phase_full_width(arch, per_forward):
     ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at 2048 steps, and
     the peak device memory.  ``per_forward`` maps each kernel of the path
     to its launches (per prefill forward, per decode step); every other
-    kernel must not launch.  Returns the serve run's launch counts."""
+    kernel must not launch.  Returns the serve run's launch counts and its
+    flash-attention launches by variant."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
@@ -498,6 +622,7 @@ def phase_full_width(arch, per_forward):
     with contextlib.redirect_stdout(buf):
         rc = serve.main(argv)
     counts = _read_counts()
+    variants = _read_variants()
     text = buf.getvalue()
     print(text, end="", flush=True)
     m = re.search(r"served (\d+) requests .*?: (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, "
@@ -508,14 +633,21 @@ def phase_full_width(arch, per_forward):
     tok_p50 = float(re.search(r"tok_lat_us\s+p50=(\d+)", text).group(1))
     rate = {k: per_forward.get(k, (0, 0)) for k in counts}
     expected = {k: pre * admits + dec * steps for k, (pre, dec) in rate.items()}
+    # full-width prefill (admission) runs only the tensor-core variant,
+    # decode only the split one
+    fa_pre, fa_dec = rate["flash_attention"]
+    expected_variants = {"tc": fa_pre * admits, "split": fa_dec * steps, "simt": 0}
     emit("serve_full", arch=arch, argv=argv, requests=served, tokens=tokens,
          tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
          decode_steps=steps, admit_calls=admits, kernel_launches=counts,
-         expected_launches=expected)
+         expected_launches=expected, flash_launches_by_variant=variants,
+         expected_flash_launches_by_variant=expected_variants)
     check(served == 8 and tokens == 8 * 16, f"{arch}: not every request was answered")
     check(counts == expected and all(counts[k] > 0 for k in per_forward),
           f"{arch}: launches {counts} for {admits} admission prefills and {steps} "
           f"decode steps (expected {expected})")
+    check(variants == expected_variants,
+          f"{arch}: flash launches by variant {variants}, expected {expected_variants}")
     freed = _free_card()                 # the CLI's model is gone
     check(freed < 1e9, f"{arch}: {freed} bytes still allocated after the serve CLI")
 
@@ -533,7 +665,10 @@ def phase_full_width(arch, per_forward):
         out = fn(*args)
         torch.cuda.synchronize()
         got = _read_counts()
+        got_variants = _read_variants()
         want = {k: pre_dec[col] for k, pre_dec in rate.items()}
+        want_variants = dict.fromkeys(got_variants, 0)
+        want_variants["split" if col else "tc"] = want["flash_attention"]
         logits = out[0]
         check(tuple(logits.shape) == (batch, 1, cfg.vocab)
               and bool(torch.isfinite(logits.float()).all().item()),
@@ -543,8 +678,13 @@ def phase_full_width(arch, per_forward):
                                runs=5, warmup=1, jitted=fn)
         emit("step_full", arch=arch, task=task, batch=batch, seq=2048,
              median_us=meas.median_us, p10_us=meas.p10_us, p90_us=meas.p90_us,
-             launches_per_forward=got, kv_cache_slots=kv_slots)
+             launches_per_forward=got, flash_launches_by_variant=got_variants,
+             kv_cache_slots=kv_slots)
         check(got == want, f"{arch} {task}: launches {got} in one forward, expected {want}")
+        check(got_variants == want_variants, f"{arch} {task}: flash launches by variant "
+              f"{got_variants}, expected {want_variants}")
+        if task == "infer_prefill":
+            _profile_step(arch, task, lambda: fn(*args))
         del step, args, out, fn
     peak = torch.cuda.max_memory_allocated()
     emit("memory", arch=arch, max_memory_allocated=peak, limit=MEMORY_LIMIT,
@@ -552,14 +692,15 @@ def phase_full_width(arch, per_forward):
     check(peak < MEMORY_LIMIT, f"{arch}: peak device memory {peak} bytes")
     del built
     _free_card()
-    return counts
+    return counts, variants
 
 
 def _kernel_entry(name, source, replaces, launches, cases, main_case, dtype="bf16"):
     main = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
-    timed = [{k: c[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "max_abs_err")}
-             for c in cases if "ms" in c]
+    keys = ("case", "dtype", "variant", "n_split", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_share", "bound_share_device", "tflops", "gbytes_per_s",
+            "library_ms", "library_device_ms", "max_abs_err")
+    timed = [{k: c[k] for k in keys if k in c} for c in cases if "ms" in c]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -585,17 +726,20 @@ def main():
     phase_reference_check("mamba2-2.7b")
     # a prompt past the reduced window (64): the ring and its gather
     phase_reference_check("recurrentgemma-9b", seq=88, max_len=100, prompt_len=40)
-    launches = {}
+    launches, variants = {}, {}
     for arch, per_forward in (
             ("gemma-2b", {"flash_attention": (18, 18)}),
             ("mamba2-2.7b", {"ssd": (64, 0)}),
             # 26 recurrent layers (RG-LRU on prefill only), 12 local attention
             ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
-        launches[arch] = phase_full_width(arch, per_forward)
+        launches[arch], variants[arch] = phase_full_width(arch, per_forward)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
-        _kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
-                      launches["gemma-2b"]["flash_attention"], fa_cases, "gemma2b_prefill"),
+        dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
+                           launches["gemma-2b"]["flash_attention"], fa_cases, "gemma2b_prefill"),
+             variants={"tc": "bf16 prefill, wgmma + TMA", "split": "split-KV decode + combine",
+                       "simt": "fp32 prefill and other head dims, CUDA cores"},
+             launches_by_variant=variants["gemma-2b"]),
         _kernel_entry("ssd", SSD_SOURCE, SSD_REPLACES, launches["mamba2-2.7b"]["ssd"],
                       ssd_cases, "mamba2_prefill"),
         _kernel_entry("rglru", RGLRU_SOURCE, RGLRU_REPLACES,
@@ -603,6 +747,7 @@ def main():
                       "recurrentgemma_prefill", dtype="fp32")],
         "recurrentgemma_flash_attention_launches":
             launches["recurrentgemma-9b"]["flash_attention"],
+        "recurrentgemma_flash_launches_by_variant": variants["recurrentgemma-9b"],
         "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``.cu`` source under ``src/repro_torch/csrc/`` with a
-plain C interface.  ``CudaLibrary.load()`` compiles it with ``nvcc`` for
+plain C interface, and includes no header of the repository: the library
+is keyed by that one file's hash.  Flash attention keeps its three
+variants (tensor-core prefill, split-KV decode, the CUDA-core kernel) in
+one file for that reason.  ``CudaLibrary.load()`` compiles it with ``nvcc`` for
 ``sm_90a`` into a shared library and binds it with ``ctypes``.  The build
 happens at first use, never at import: the library lands in ``build/`` at
 the root of the checkout under a name keyed by the source's hash, so a

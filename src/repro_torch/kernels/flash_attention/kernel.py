@@ -1,28 +1,85 @@
-"""The hand-written CUDA flash-attention kernel: build, load, launch.
+"""The hand-written CUDA flash-attention kernels: plan, build, load, launch.
 
 Port of the Pallas TPU kernel ``repro.kernels.flash_attention.kernel.
-flash_attention_bh``; the source and its design note are in
+flash_attention_bh``; the sources and their design notes are in
 ``src/repro_torch/csrc/flash_attention.cu``.  It is built with ``nvcc`` at
 first use and bound with ``ctypes`` by ``repro_torch.kernels.build``.
+
+One C entry point, ``fa_forward``, runs one of three variants, and the
+variant is chosen here, by ``plan()``, from shapes and dtype alone:
+
+* ``tc``    — bf16 prefill on the tensor cores (wgmma, TMA-fed K/V ring),
+              when a (row, kv head) has more than 64 packed rows
+              Sq·G and D is 32, 64, 128 or 256;
+* ``split`` — split-KV decode (flash-decoding) in bf16 or fp32, when
+              Sq·G <= 64: ``n_split`` blocks per (row, kv head) write fp32
+              partials to a scratch buffer that a second kernel combines
+              (bf16 with Sq·G <= 16 and D in {64, 128, 256} on the tensor
+              cores by ``mma.sync``, the rest on the CUDA cores);
+* ``simt``  — the first design on the CUDA cores: fp32 prefill and any
+              other head_dim (a multiple of 4, at most 256).
+
+No variant stands in for another that fails to build or launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import math
+from typing import Tuple, Union
 
 import torch
 
 from repro_torch.kernels.build import CSRC, CudaLibrary
 
 MASK_IDS = {"full": 0, "causal": 1, "local": 2, "prefix": 3}
+VARIANTS = ("tc", "split", "simt")
+VARIANT_IDS = {name: i for i, name in enumerate(VARIANTS)}
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (32, 64, 128, 256)
+SPLIT_MAX_ROWS = 64       # packed rows Sq·G one split block holds
+SPLIT_MIN_KEYS = 64       # a split keeps at least this many keys
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+TC_ROWS = 128             # packed rows per tc block (two warpgroups of 64)
+
+RowsArg = Union[int, torch.Tensor]
+
+
+def plan(B: int, Sq: int, Sk: int, H: int, K: int, D: int,
+         dtype: torch.dtype) -> Tuple[str, int]:
+    """(variant, n_split) for one call; ``n_split`` is 1 except for
+    ``split``, where it is chosen so that B·K·n_split >= 2 x 132 blocks
+    unless that would leave a split fewer than 64 keys."""
+    rows = Sq * (H // K)
+    if rows <= SPLIT_MAX_ROWS:
+        want = math.ceil(2 * SMS / max(B * K, 1))
+        return "split", max(1, min(want, Sk // SPLIT_MIN_KEYS))
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        return "tc", 1
+    return "simt", 1
+
+
+def tc_warpgroups(B: int, Sq: int, H: int, K: int) -> int:
+    """Warpgroups (64 rows each) of a ``tc`` block: two, unless
+    128-row blocks would fill fewer than 132 SMs."""
+    blocks = math.ceil(Sq * (H // K) / TC_ROWS) * K * B
+    return 2 if blocks >= SMS else 1
+
+
+def scratch_shape(B: int, Sq: int, H: int, K: int, D: int,
+                  n_split: int) -> Tuple[int, ...]:
+    """fp32 partials of the ``split`` variant: per split, row, kv head and
+    packed row, the unnormalised accumulator (D) then m and l."""
+    return (n_split, B, K, Sq * (H // K), D + 2)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.fa_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                   + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    lib.fa_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fa_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.fa_smem_bytes.restype = ctypes.c_size_t
 
 
@@ -32,26 +89,35 @@ build_info = LIBRARY.build_info
 library = LIBRARY.load
 
 
-def shared_memory_bytes(head_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at ``head_dim``."""
-    return int(library().fa_smem_bytes(head_dim))
+def shared_memory_bytes(head_dim: int, variant: str = "simt", rows: int = 64,
+                        bf16: bool = True, warpgroups: int = 2) -> int:
+    """Dynamic shared memory one block of ``variant`` takes at ``head_dim``
+    (``rows``: packed rows of a split block)."""
+    return int(library().fa_smem_bytes(VARIANT_IDS[variant], head_dim, rows,
+                                       int(bf16), warpgroups))
 
 
-def _check_rows(name: str, t: torch.Tensor, B: int, device) -> None:
-    if t.device != device or t.dtype != torch.int32 or t.shape != (B,) \
-            or not t.is_contiguous():
-        raise ValueError(f"flash_attention: {name} must be a contiguous "
-                         f"int32 ({B},) tensor on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+def _rows_arg(name: str, x: RowsArg, B: int, device):
+    """(scalar, row pointer) for the C call: an int goes as itself with a
+    null pointer; a tensor as a contiguous int32 (B,) tensor on ``device``
+    (a 0-d tensor is expanded there, without a copy from the host)."""
+    if not isinstance(x, torch.Tensor):
+        return int(x), None
+    if x.ndim > 1 or (x.ndim == 1 and x.shape[0] != B):
+        raise ValueError(f"flash_attention: {name} must be a scalar or a "
+                         f"({B},) tensor, got {tuple(x.shape)}")
+    t = x.to(device=device, dtype=torch.int32)
+    return 0, (t.expand(B) if t.ndim == 0 else t).contiguous()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         q_offset: torch.Tensor, kv_len: torch.Tensor,
+                         q_offset: RowsArg, kv_len: RowsArg,
                          mask_type: str, window: int, prefix_len: int,
                          scale: float, softcap: float) -> torch.Tensor:
-    """Launch the kernel: q (B, Sq, H, D), k/v (B, Sk, K, D) contiguous CUDA
-    tensors of one dtype (bf16 or fp32); ``q_offset``/``kv_len`` int32 (B,)
-    on the same device.  Returns a new (B, Sq, H, D) tensor."""
+    """Launch the planned variant: q (B, Sq, H, D), k/v (B, Sk, K, D)
+    contiguous CUDA tensors of one dtype (bf16 or fp32), 16-byte aligned;
+    ``q_offset``/``kv_len`` ints or per-row (B,) integer tensors.  Returns
+    a new (B, Sq, H, D) tensor."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
@@ -74,26 +140,45 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"of 4 and at most {MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     if mask_type not in MASK_IDS:
         raise ValueError(f"unknown mask_type {mask_type!r}")
-    _check_rows("q_offset", q_offset, B, dev)
-    _check_rows("kv_len", kv_len, B, dev)
+    qo, qo_rows = _rows_arg("q_offset", q_offset, B, dev)
+    kl, kl_rows = _rows_arg("kv_len", kv_len, B, dev)
     out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    variant, n_split = plan(B, Sq, Sk, H, K, D, q.dtype)
+    scratch = (torch.empty(scratch_shape(B, Sq, H, K, D, n_split),
+                           dtype=torch.float32, device=dev)
+               if variant == "split" else None)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     lib = library()
-    with torch.cuda.device(dev):
+    # the launch goes to the thread's current device: switch only if q is
+    # elsewhere (the switch costs host time on every call)
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), q_offset.data_ptr(),
-                            kv_len.data_ptr(), B, Sq, Sk, H, K, D,
-                            MASK_IDS[mask_type], int(window), int(prefix_len),
+                            out.data_ptr(), ptr(qo_rows), ptr(kl_rows), qo, kl,
+                            B, Sq, Sk, H, K, D, MASK_IDS[mask_type],
+                            int(window), int(prefix_len),
                             float(scale), float(softcap),
-                            int(q.dtype == torch.bfloat16), stream)
+                            int(q.dtype == torch.bfloat16), VARIANT_IDS[variant],
+                            n_split, tc_warpgroups(B, Sq, H, K),
+                            ptr(scratch), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"flash_attention kernel ({variant}) launch "
+                           f"failed: CUDA error {rc}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_variant[variant] += 1
     return out
 
 
-#: launches of the kernel since the count was last set to 0
+#: op calls that launched a kernel since the count was last set to 0 (the
+#: split variant's combine kernel is part of its call, not a launch more)
 flash_attention_cuda.launches = 0
+#: the same calls by variant
+flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

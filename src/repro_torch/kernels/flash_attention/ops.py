@@ -9,9 +9,12 @@ kernel (kv head ``h // G``), so nothing is repeated here.
 
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.attention_ref``; a CUDA tensor launches the kernel, or the call
-raises.  There is no fallback from one to the other.  There is no
-tuning-DB lookup yet (``tuning/`` is ROADMAP Queue 1, slice 7): the
-kernel's tiles are fixed in its source.
+raises.  There is no fallback from one to the other.  The kernel's
+variant (tensor-core prefill, split-KV decode or the CUDA-core kernel) is
+chosen by ``kernel.plan`` from shapes and dtype.  A scalar ``q_offset`` /
+``kv_len`` reaches the kernel as an int, with no tensor made for it.
+There is no tuning-DB lookup yet (``tuning/`` is ROADMAP Queue 1, slice
+7): the kernel's tiles are fixed in its source.
 """
 from __future__ import annotations
 
@@ -21,12 +24,6 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import IntOrRows, attention_ref
-
-
-def _rows_int32(x: IntOrRows, B: int, device) -> torch.Tensor:
-    t = torch.as_tensor(x, device=device)
-    return t.to(torch.int32).expand(B).contiguous() if t.ndim == 0 else \
-        t.to(torch.int32).contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,7 +37,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset`` is the position of q[:, 0] and ``kv_len`` the valid kv
     length (None: all of Sk); each is a scalar or a per-row (B,) tensor.
     """
-    B, Sq, H, D = q.shape
+    D = q.shape[-1]
     Sk = k.shape[1]
     if v.shape[-1] != D:
         raise NotImplementedError(
@@ -56,7 +53,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     return flash_attention_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(),
-        q_offset=_rows_int32(q_offset, B, q.device),
-        kv_len=_rows_int32(Sk if kv_len is None else kv_len, B, q.device),
+        q_offset=q_offset, kv_len=Sk if kv_len is None else kv_len,
         mask_type=mask_type, window=window, prefix_len=prefix_len,
         scale=scale, softcap=softcap)

@@ -80,3 +80,80 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()[:, :, kv_head])
     return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The split-KV (flash-decoding) algorithm of the kernel's ``split`` variant,
+# in plain PyTorch: used by the tests, never by the op.
+# ---------------------------------------------------------------------------
+
+SPLIT_TILE = 32   # keys per tile of the split kernel; a split is a multiple
+
+
+def split_ranges(q_offset: int, kv_len: int, Sq: int, Sk: int, mask_type: str,
+                 window: int, prefix_len: int, n_split: int):
+    """The key range [lo, hi) of each of ``n_split`` splits of one batch
+    row, as the split kernel computes it: the range any of the row's Sq
+    queries can see (``kv_len``, then the mask), cut into equal chunks of
+    whole tiles.  Trailing splits may be empty (lo >= hi)."""
+    q_hi = q_offset + Sq - 1
+    end = min(kv_len, Sk)
+    if mask_type in ("causal", "local"):
+        end = min(end, q_hi + 1)
+    elif mask_type == "prefix":
+        end = min(end, max(q_hi + 1, prefix_len))
+    beg = max(0, q_offset - window + 1) if mask_type == "local" else 0
+    per_split = -(-max(end - beg, 0) // n_split)
+    chunk = -(-per_split // SPLIT_TILE) * SPLIT_TILE
+    return [(beg + i * chunk, min(end, beg + (i + 1) * chunk))
+            for i in range(n_split)]
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        n_split: int, mask_type: str = "causal",
+                        window: int = 0, prefix_len: int = 0,
+                        q_offset: IntOrRows = 0,
+                        kv_len: Optional[IntOrRows] = None,
+                        softmax_scale: Optional[float] = None,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """``attention_ref`` computed as the split kernel does: each split of
+    each row's key range gives a partial (m, l, acc) in fp32, with masked
+    keys at -1e30 and keys outside the split at -inf (so an empty split
+    has m = -1e30, l = 0, acc = 0); then O = sum e^(m_i - M) acc_i /
+    sum e^(m_i - M) l_i.  Equal to ``attention_ref`` on every row that
+    sees at least one key."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    dev = q.device
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    kv_head = torch.arange(H, device=dev) // G
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale,
+                     k.float()[:, :, kv_head])
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    qo = _rows(q_offset, dev).expand(B)
+    kl = _rows(Sk if kv_len is None else kv_len, dev).expand(B)
+    q_pos = qo[:, None] + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    vis = allowed_mask(q_pos, k_pos, mask_type, window, prefix_len)
+    vis = vis & (k_pos < kl[:, None, None])
+    s = torch.where(vis[:, None], s, NEG_INF)
+    vf = v.float()[:, :, kv_head]
+    ms, ls, accs = [], [], []
+    ranges = [split_ranges(int(qo[b]), int(kl[b]), Sq, Sk, mask_type, window,
+                           prefix_len, n_split) for b in range(B)]
+    for i in range(n_split):
+        inside = torch.stack([(k_pos >= ranges[b][i][0]) & (k_pos < ranges[b][i][1])
+                              for b in range(B)])
+        si = torch.where(inside[:, None, None], s, -math.inf)
+        m = torch.clamp(si.amax(-1), min=NEG_INF)
+        p = torch.exp(si - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhqk,bkhd->bqhd", p, vf))
+    m_all = torch.stack(ms)                              # (n, B, H, Sq)
+    w = torch.exp(m_all - m_all.amax(0))
+    den = (w * torch.stack(ls)).sum(0).clamp(min=1e-30)  # (B, H, Sq)
+    num = (w.permute(0, 1, 3, 2)[..., None] * torch.stack(accs)).sum(0)
+    return (num / den.transpose(1, 2)[..., None]).to(q.dtype)
