@@ -15,10 +15,12 @@ a time.  Each model's main path runs with every kernel's launch count set
 to 0 just before it and read just after: every attention call goes
 through the flash-attention kernel (full-width prefill through its
 tensor-core variant, decode through its split-KV variant: counted by
-variant), every prefill of every Mamba-2 layer through the SSD kernel,
-every prefill of every RG-LRU layer through the RG-LRU kernel.  Timed
-kernel cases report the variant, achieved TFLOP/s and GB/s, the share of
-the bound and, for short calls, the device time from ``torch.profiler``.
+variant), every prefill of every Mamba-2 layer through the SSD kernel
+(at full width through its three-pass tensor-core variant: counted by
+variant), every prefill of every RG-LRU layer through the RG-LRU kernel.
+Timed kernel cases report the variant, achieved TFLOP/s and GB/s, the
+share of the bound and, for short calls, the device time from
+``torch.profiler`` (for the SSD, its passes summed).
 One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -45,6 +47,9 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 TOL = {"fp32": 2e-5, "bf16": 2e-2}             # as tests/test_kernels.py
 SSD_TOL = {"fp32": 5e-5, "bf16": 5e-2}         # as tests/test_kernels.py
+# A = -50: the chunk's cum runs to ~-3000, so fp32 e^(cum_i - cum_j) carries
+# ~2e-4 relative rounding whatever sums the cumsum (tests/test_torch_ssd_gpu.py)
+SSD_STRONG_DECAY_TOL = {"fp32": 1e-3, "bf16": 5e-2}
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:123"
 SSD_SOURCE = "src/repro_torch/csrc/ssd.cu"
@@ -113,8 +118,11 @@ def phase_build():
                     256, "tc", warpgroups=2),
                 dynamic_smem_bytes_split_d256_16_rows_bf16=fa.shared_memory_bytes(
                     256, "split", rows=16))),
-            ("ssd", sk, SSD_SOURCE, dict(dynamic_smem_bytes_p64_n128=sk.shared_memory_bytes(64, 128),
-                                         dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16))),
+            ("ssd", sk, SSD_SOURCE, dict(
+                dynamic_smem_bytes_p64_n128=sk.shared_memory_bytes(64, 128),
+                dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16),
+                dynamic_smem_bytes_tc_chunk_state=sk.shared_memory_bytes(64, 128, "chunk_state"),
+                dynamic_smem_bytes_tc_chunk_scan=sk.shared_memory_bytes(64, 128, "chunk_scan"))),
             ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0))):
         ptxas = mod.build_info.get("ptxas", "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
@@ -129,6 +137,9 @@ def phase_build():
                        if n and any(v in f for v in ("fa_tc_kernel", "fa_split_kernel",
                                                      "fa_decode_combine"))}
             check(not spilled, f"flash attention variants spill registers: {spilled}")
+        if name == "ssd":               # no SSD instance may spill
+            spilled = {f: n for f, n in _spills_by_function(ptxas).items() if n}
+            check(not spilled, f"SSD kernels spill registers: {spilled}")
 
 
 def _spills_by_function(ptxas):
@@ -298,12 +309,12 @@ def phase_kernels():
     return cases
 
 
-def _ssd_bound(dtype, B, S, H, P, N, init):
-    """Least time for one SSD call: the chunked algorithm's FLOPs at chunk
-    256 (C.B^T once per row and chunk, shared by the heads) at the bf16
-    peak, or the bytes of x, dt, A, B, C (and the initial state, when one
-    is given) read once and y and the final state written once, at the
-    memory rate."""
+def _ssd_work(dtype, B, S, H, P, N, init):
+    """The work of one SSD call, whatever computes it: the chunked
+    algorithm's FLOPs at chunk 256 (C.B^T once per row and chunk, shared
+    by the heads), and the bytes of x, dt, A, B, C (and the initial state,
+    when one is given) read once and y and the final state written once.
+    Returns (flops, bytes)."""
     elem = 2 if dtype == "bf16" else 4
     flops = 0.0
     for s0 in range(0, S, 256):
@@ -311,14 +322,23 @@ def _ssd_bound(dtype, B, S, H, P, N, init):
         flops += B * (2.0 * n * n * N + H * (2.0 * n * n * P + 4.0 * n * N * P))
     nbytes = (elem * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
               + 4 * B * H * P * N * (2 if init else 1))
+    return flops, nbytes
+
+
+def _ssd_bound(dtype, B, S, H, P, N, init):
+    """Least time for one SSD call: its FLOPs (``_ssd_work``) at the bf16
+    peak, or its bytes at the memory rate."""
+    flops, nbytes = _ssd_work(dtype, B, S, H, P, N, init)
     t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def ssd_case(name, dtype, B, S, H, P, N, init=False, timed=False):
+def ssd_case(name, dtype, B, S, H, P, N, init=False, timed=False, decay=None):
     """The SSD kernel against its plain version (``ssd_ref``, which chunks
-    as the kernel does) on the same inputs, y and final state."""
+    as the kernel does) on the same inputs, y and final state; ``decay``:
+    one A for every head in place of the drawn ones."""
     import torch
+    from repro_torch.kernels.ssd.kernel import plan, ssd_cuda
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ref import ssd_ref
     dev = torch.device("cuda")
@@ -327,26 +347,44 @@ def ssd_case(name, dtype, B, S, H, P, N, init=False, timed=False):
     x = torch.randn(B, S, H, P, generator=g).to(dev, tdt)
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g)).to(dev)
     A = -torch.exp(torch.randn(H, generator=g) * 0.3).to(dev)
+    if decay is not None:
+        A = torch.full_like(A, decay)
     Bm = (torch.randn(B, S, N, generator=g) * 0.3).to(dev, tdt)
     Cm = (torch.randn(B, S, N, generator=g) * 0.3).to(dev, tdt)
     h0 = torch.randn(B, H, P, N, generator=g).to(dev) if init else None
+    variant, heads_per_block = plan(B, S, H, P, N, tdt)
+    before = ssd_cuda.launches_by_variant[variant]
     y, state = ssd(x, dt, A, Bm, Cm, init_state=h0)
     torch.cuda.synchronize()
+    check(ssd_cuda.launches_by_variant[variant] == before + 1,
+          f"{name}: the SSD {variant} variant did not launch")
     want_y, want_state = ssd_ref(x, dt, A, Bm, Cm, h0)
     err_y = (y.float() - want_y.float()).abs().max().item()
     err_s = (state - want_state).abs().max().item()
-    tol = SSD_TOL[dtype]
+    tol = SSD_TOL[dtype] if decay is None else SSD_STRONG_DECAY_TOL[dtype]
     # the tolerance is relative as well as absolute, as in assert_allclose
     ok_y = bool(((y.float() - want_y.float()).abs() <= tol + tol * want_y.float().abs()).all())
     ok_s = bool(((state - want_state).abs() <= tol + tol * want_state.abs()).all())
     res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, H=H, P=P, N=N),
-               init_state=init, max_abs_err=max(err_y, err_s), max_abs_err_y=err_y,
+               init_state=init, decay=decay, variant=variant, heads_per_block=heads_per_block,
+               max_abs_err=max(err_y, err_s), max_abs_err_y=err_y,
                max_abs_err_state=err_s, tol=tol,
                finite=bool(torch.isfinite(y).all().item() and torch.isfinite(state).all().item()))
     check(res["finite"] and ok_y and ok_s, f"SSD kernel disagrees with its plain version: {res}")
     if timed:
         res["bound_ms"], res["bound_by"] = _ssd_bound(dtype, B, S, H, P, N, init)
-        res["ms"] = time_ms(lambda: ssd(x, dt, A, Bm, Cm, init_state=h0))
+        flops, nbytes = _ssd_work(dtype, B, S, H, P, N, init)
+        call = lambda: ssd(x, dt, A, Bm, Cm, init_state=h0)   # noqa: E731
+        res["ms"] = time_ms(call, iters=20)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        res["gbytes_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        # device time of every SSD kernel of the call (the tc passes summed)
+        res["device_ms"] = device_ms(call, "ssd_")
+        if isinstance(res["device_ms"], float):
+            res["bound_share_device"] = res["bound_ms"] / res["device_ms"]
+            res["tflops_device"] = flops / (res["device_ms"] * 1e-3) / 1e12
+            res["gbytes_per_s_device"] = nbytes / (res["device_ms"] * 1e-3) / 1e9
         res["plain_ms"] = time_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, h0),
                                   iters=3, warmup=1)
         res["library_ms"] = None   # no single PyTorch call computes the SSD scan
@@ -367,6 +405,11 @@ def phase_ssd_kernels():
                               timed=dtype == "bf16"))
         cases.append(ssd_case("ragged_init", dtype, 2, 200, 80, 64, 128, init=True))
         cases.append(ssd_case("reduced_ragged_init", dtype, 2, 37, 16, 16, 16, init=True))
+        # the chunk's edges at full width, from a cache state; a strong decay
+        for S in (1, 63, 65):
+            cases.append(ssd_case(f"chunk_edge_s{S}_init", dtype, 4, S, 80, 64, 128, init=True))
+        cases.append(ssd_case("strong_decay", dtype, 1, 2048, 80, 64, 128, init=True,
+                              decay=-50.0))
     return cases
 
 
@@ -494,9 +537,10 @@ def _counters():
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    by_variant = _counters()["flash_attention"].launches_by_variant
-    for name in by_variant:
-        by_variant[name] = 0
+    for kernel in ("flash_attention", "ssd"):
+        by_variant = _counters()[kernel].launches_by_variant
+        for name in by_variant:
+            by_variant[name] = 0
 
 
 def _read_counts():
@@ -506,6 +550,11 @@ def _read_counts():
 def _read_variants():
     """Flash-attention launches by variant (tc, split, simt)."""
     return dict(_counters()["flash_attention"].launches_by_variant)
+
+
+def _read_ssd_variants():
+    """SSD launches by variant (tc, simt)."""
+    return dict(_counters()["ssd"].launches_by_variant)
 
 
 def phase_profile(arch, model, steps=5):
@@ -567,7 +616,12 @@ def _profile_step(arch, task, call):
             for name, key in (("flash_tc", "fa_tc_kernel"), ("flash_split", "split::fa_split"),
                               ("flash_split_mma", "fa_split_mma"),
                               ("flash_combine", "fa_decode_combine"),
-                              ("flash_simt", "fa_kernel<"), ("ssd", "ssd_kernel"),
+                              ("flash_simt", "fa_kernel<"),
+                              ("ssd", "ssd_"),   # every SSD kernel: the tc passes summed
+                              ("ssd_chunk_state", "ssd_chunk_state"),
+                              ("ssd_state_pass", "ssd_state_pass"),
+                              ("ssd_chunk_scan", "ssd_chunk_scan"),
+                              ("ssd_simt", "simt::ssd_kernel"),
                               ("rglru", "rglru_kernel"))}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit("profile_step_full", arch=arch, task=task, wall_ms_profiled=wall_ms,
@@ -605,7 +659,7 @@ def phase_full_width(arch, per_forward):
     the peak device memory.  ``per_forward`` maps each kernel of the path
     to its launches (per prefill forward, per decode step); every other
     kernel must not launch.  Returns the serve run's launch counts and its
-    flash-attention launches by variant."""
+    flash-attention and SSD launches by variant."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
@@ -623,6 +677,7 @@ def phase_full_width(arch, per_forward):
         rc = serve.main(argv)
     counts = _read_counts()
     variants = _read_variants()
+    ssd_variants = _read_ssd_variants()
     text = buf.getvalue()
     print(text, end="", flush=True)
     m = re.search(r"served (\d+) requests .*?: (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, "
@@ -637,17 +692,23 @@ def phase_full_width(arch, per_forward):
     # decode only the split one
     fa_pre, fa_dec = rate["flash_attention"]
     expected_variants = {"tc": fa_pre * admits, "split": fa_dec * steps, "simt": 0}
+    # full-width bf16 prefill runs only the SSD's tensor-core variant
+    expected_ssd_variants = {"tc": expected["ssd"], "simt": 0}
     emit("serve_full", arch=arch, argv=argv, requests=served, tokens=tokens,
          tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
          decode_steps=steps, admit_calls=admits, kernel_launches=counts,
          expected_launches=expected, flash_launches_by_variant=variants,
-         expected_flash_launches_by_variant=expected_variants)
+         expected_flash_launches_by_variant=expected_variants,
+         ssd_launches_by_variant=ssd_variants,
+         expected_ssd_launches_by_variant=expected_ssd_variants)
     check(served == 8 and tokens == 8 * 16, f"{arch}: not every request was answered")
     check(counts == expected and all(counts[k] > 0 for k in per_forward),
           f"{arch}: launches {counts} for {admits} admission prefills and {steps} "
           f"decode steps (expected {expected})")
     check(variants == expected_variants,
           f"{arch}: flash launches by variant {variants}, expected {expected_variants}")
+    check(ssd_variants == expected_ssd_variants,
+          f"{arch}: SSD launches by variant {ssd_variants}, expected {expected_ssd_variants}")
     freed = _free_card()                 # the CLI's model is gone
     check(freed < 1e9, f"{arch}: {freed} bytes still allocated after the serve CLI")
 
@@ -666,9 +727,11 @@ def phase_full_width(arch, per_forward):
         torch.cuda.synchronize()
         got = _read_counts()
         got_variants = _read_variants()
+        got_ssd_variants = _read_ssd_variants()
         want = {k: pre_dec[col] for k, pre_dec in rate.items()}
         want_variants = dict.fromkeys(got_variants, 0)
         want_variants["split" if col else "tc"] = want["flash_attention"]
+        want_ssd_variants = {"tc": want["ssd"], "simt": 0}
         logits = out[0]
         check(tuple(logits.shape) == (batch, 1, cfg.vocab)
               and bool(torch.isfinite(logits.float()).all().item()),
@@ -679,10 +742,12 @@ def phase_full_width(arch, per_forward):
         emit("step_full", arch=arch, task=task, batch=batch, seq=2048,
              median_us=meas.median_us, p10_us=meas.p10_us, p90_us=meas.p90_us,
              launches_per_forward=got, flash_launches_by_variant=got_variants,
-             kv_cache_slots=kv_slots)
+             ssd_launches_by_variant=got_ssd_variants, kv_cache_slots=kv_slots)
         check(got == want, f"{arch} {task}: launches {got} in one forward, expected {want}")
         check(got_variants == want_variants, f"{arch} {task}: flash launches by variant "
               f"{got_variants}, expected {want_variants}")
+        check(got_ssd_variants == want_ssd_variants, f"{arch} {task}: SSD launches by "
+              f"variant {got_ssd_variants}, expected {want_ssd_variants}")
         if task == "infer_prefill":
             _profile_step(arch, task, lambda: fn(*args))
         del step, args, out, fn
@@ -692,14 +757,15 @@ def phase_full_width(arch, per_forward):
     check(peak < MEMORY_LIMIT, f"{arch}: peak device memory {peak} bytes")
     del built
     _free_card()
-    return counts, variants
+    return counts, variants, ssd_variants
 
 
 def _kernel_entry(name, source, replaces, launches, cases, main_case, dtype="bf16"):
     main = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
-    keys = ("case", "dtype", "variant", "n_split", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "bound_share", "bound_share_device", "tflops", "gbytes_per_s",
-            "library_ms", "library_device_ms", "max_abs_err")
+    keys = ("case", "dtype", "variant", "n_split", "heads_per_block", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "bound_share", "bound_share_device", "tflops",
+            "gbytes_per_s", "tflops_device", "gbytes_per_s_device", "library_ms",
+            "library_device_ms", "max_abs_err")
     timed = [{k: c[k] for k in keys if k in c} for c in cases if "ms" in c]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -726,13 +792,13 @@ def main():
     phase_reference_check("mamba2-2.7b")
     # a prompt past the reduced window (64): the ring and its gather
     phase_reference_check("recurrentgemma-9b", seq=88, max_len=100, prompt_len=40)
-    launches, variants = {}, {}
+    launches, variants, ssd_variants = {}, {}, {}
     for arch, per_forward in (
             ("gemma-2b", {"flash_attention": (18, 18)}),
             ("mamba2-2.7b", {"ssd": (64, 0)}),
             # 26 recurrent layers (RG-LRU on prefill only), 12 local attention
             ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
-        launches[arch], variants[arch] = phase_full_width(arch, per_forward)
+        launches[arch], variants[arch], ssd_variants[arch] = phase_full_width(arch, per_forward)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
@@ -740,8 +806,12 @@ def main():
              variants={"tc": "bf16 prefill, wgmma + TMA", "split": "split-KV decode + combine",
                        "simt": "fp32 prefill and other head dims, CUDA cores"},
              launches_by_variant=variants["gemma-2b"]),
-        _kernel_entry("ssd", SSD_SOURCE, SSD_REPLACES, launches["mamba2-2.7b"]["ssd"],
-                      ssd_cases, "mamba2_prefill"),
+        dict(_kernel_entry("ssd", SSD_SOURCE, SSD_REPLACES, launches["mamba2-2.7b"]["ssd"],
+                           ssd_cases, "mamba2_prefill"),
+             variants={"tc": "bf16, P=64 N=128: chunk states, state pass, chunk scan "
+                             "(mma.sync, cp.async)",
+                       "simt": "fp32 and other head sizes, CUDA cores"},
+             launches_by_variant=ssd_variants["mamba2-2.7b"]),
         _kernel_entry("rglru", RGLRU_SOURCE, RGLRU_REPLACES,
                       launches["recurrentgemma-9b"]["rglru"], rglru_cases,
                       "recurrentgemma_prefill", dtype="fp32")],

@@ -1,13 +1,28 @@
-"""The hand-written CUDA SSD chunked-scan kernel: build, load, launch.
+"""The hand-written CUDA SSD chunked-scan kernels: plan, build, load, launch.
 
 Port of the Pallas TPU kernel ``repro.kernels.ssd.kernel.ssd_bh``; the
 source and its design note are in ``src/repro_torch/csrc/ssd.cu``.  It is
 built with ``nvcc`` at first use and bound with ``ctypes`` by
 ``repro_torch.kernels.build``.
+
+One C entry point, ``ssd_forward``, runs one of two variants, and the
+variant is chosen here, by ``plan()``, from shapes and dtype alone:
+
+* ``tc``   — bf16 with head_dim P = 64 and d_state N = 128 (every Mamba-2
+             model of the repository): three passes, chunk states and chunk scan on
+             the tensor cores, parallel over (chunk, head group, row), and a
+             state pass sequential over chunks only, through a scratch the
+             wrapper allocates;
+* ``simt`` — the first design on the CUDA cores: fp32 (held to 5e-5) and
+             any other P, N (multiples of 8, at most 128).
+
+No variant stands in for another that fails to build or launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -17,14 +32,44 @@ from repro_torch.kernels.ssd.ref import CHUNK
 
 MAX_DIM = 128
 DTYPES = (torch.bfloat16, torch.float32)
+VARIANTS = ("tc", "simt")
+VARIANT_IDS = {name: i for i, name in enumerate(VARIANTS)}
+TC_HEAD_DIM = 64
+TC_STATE_DIM = 128
+HEADS_PER_BLOCK = 4       # C·Bᵀ and the B/C loads are shared by this many heads
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+KERNEL_IDS = {"simt": 0, "chunk_state": 1, "chunk_scan": 2}
+
+
+def plan(B: int, S: int, H: int, P: int, N: int,
+         dtype: torch.dtype) -> Tuple[str, int]:
+    """(variant, heads_per_block) for one call.  ``tc`` for bf16 at
+    P = 64, N = 128; its heads per block are 4, halved (down to 1)
+    while a pass would have fewer than two blocks per SM (2 x 132).
+    ``heads_per_block`` is 1 for ``simt`` (one block per row and head)."""
+    if dtype != torch.bfloat16 or P != TC_HEAD_DIM or N != TC_STATE_DIM:
+        return "simt", 1
+    chunks = math.ceil(S / CHUNK)
+    hpb = HEADS_PER_BLOCK
+    while hpb > 1 and B * chunks * math.ceil(H / hpb) < 2 * SMS:
+        hpb //= 2
+    return "tc", hpb
+
+
+def scratch_shapes(B: int, S: int, H: int, P: int, N: int):
+    """The ``tc`` variant's scratch: chunk states (B, n_chunks, H, P, N)
+    fp32, the incoming states h_in of the same shape in bf16, and cum_last
+    (B, n_chunks, H) fp32, n_chunks = ceil(S / CHUNK)."""
+    nc = math.ceil(S / CHUNK)
+    return (B, nc, H, P, N), (B, nc, H, P, N), (B, nc, H)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_forward
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ssd_smem_bytes.restype = ctypes.c_size_t
     lib.ssd_chunk.restype = ctypes.c_int
     if lib.ssd_chunk() != CHUNK:
@@ -38,9 +83,17 @@ build_info = LIBRARY.build_info
 library = LIBRARY.load
 
 
-def shared_memory_bytes(P: int, N: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at (P, N)."""
-    return int(library().ssd_smem_bytes(P, N))
+def shared_memory_bytes(P: int, N: int, kernel: str = "simt") -> int:
+    """Dynamic shared memory one block of ``kernel`` (``simt``,
+    ``chunk_state`` or ``chunk_scan``) takes at (P, N)."""
+    return int(library().ssd_smem_bytes(KERNEL_IDS[kernel], P, N))
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` (unit stride last) starts 16 bytes
+    aligned, as the ``tc`` variant's 16-byte copies need."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:-1])
 
 
 def _fail(msg: str):
@@ -51,12 +104,12 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor,
              init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel.  x (B, S, H, P) with unit stride over P and
-    stride P over H; dt (B, S, H) fp32 contiguous; A (H,) fp32; Bm/Cm
+    """Launch the planned variant.  x (B, S, H, P) with unit stride over P
+    and stride P over H; dt (B, S, H) fp32 contiguous; A (H,) fp32; Bm/Cm
     (B, S, N) with unit stride over N; x, Bm, Cm of one dtype (bf16 or
-    fp32); ``init_state`` (B, H, P, N) fp32 contiguous or None (zeros).
-    Returns new tensors y (B, S, H, P) in x's dtype and the final state
-    (B, H, P, N) fp32."""
+    fp32), their rows 16-byte aligned under ``tc``; ``init_state``
+    (B, H, P, N) fp32 contiguous or None (zeros).  Returns new tensors y
+    (B, S, H, P) in x's dtype and the final state (B, H, P, N) fp32."""
     dev = x.device
     if dev.type != "cuda":
         _fail(f"ssd_cuda needs CUDA tensors, got {dev}")
@@ -91,22 +144,41 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         _fail(f"init_state must be a contiguous float32 {(B, H, P, N)} "
               f"tensor on {dev}, got {init_state.dtype} "
               f"{tuple(init_state.shape)} on {init_state.device}")
+    variant, hpb = plan(B, S, H, P, N, x.dtype)
+    if variant == "tc" and not all(_aligned16(t) for t in (x, Bm, Cm)):
+        _fail("x, Bm and Cm rows must be 16-byte aligned")
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    scratch = [None, None, None]
+    if variant == "tc":
+        s_shape, h_shape, l_shape = scratch_shapes(B, S, H, P, N)
+        scratch = [torch.empty(s_shape, dtype=torch.float32, device=dev),
+                   torch.empty(h_shape, dtype=torch.bfloat16, device=dev),
+                   torch.empty(l_shape, dtype=torch.float32, device=dev)]
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     lib = library()
-    with torch.cuda.device(dev):
+    # the launch goes to the thread's current device: switch only if x is
+    # elsewhere (the switch costs host time on every call)
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ssd_forward(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, S, H, P, N,
+            Cm.data_ptr(), ptr(init_state), y.data_ptr(), state.data_ptr(),
+            *(ptr(t) for t in scratch), B, S, H, P, N,
             x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-            Cm.stride(0), Cm.stride(1), int(x.dtype == torch.bfloat16), stream)
+            Cm.stride(0), Cm.stride(1), int(x.dtype == torch.bfloat16),
+            VARIANT_IDS[variant], hpb, stream)
     if rc != 0:
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd kernel ({variant}) launch failed: CUDA error {rc}")
     ssd_cuda.launches += 1
+    ssd_cuda.launches_by_variant[variant] += 1
     return y, state
 
 
-#: launches of the kernel since the count was last set to 0
+#: op calls that launched a kernel since the count was last set to 0 (the
+#: tc variant's three passes are one call, one launch here)
 ssd_cuda.launches = 0
+#: the same calls by variant
+ssd_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -8,7 +8,8 @@ row inside the kernel, so nothing is repeated over the heads here; the
 ragged last chunk is masked inside the kernel, so nothing is padded.
 
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
-to ``ref.ssd_ref``; a CUDA tensor launches the kernel, or the call raises.
+to ``ref.ssd_ref``; a CUDA tensor launches the kernel (the variant
+``kernel.plan()`` names), or the call raises.
 There is no fallback from one to the other.  Both chunk by the kernel's 64
 steps (``ref.CHUNK``); the reference's ``chunk`` argument and tuning-DB
 lookup have no counterpart yet (``tuning/`` is ROADMAP Queue 1, slice 7).

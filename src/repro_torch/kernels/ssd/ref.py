@@ -5,6 +5,11 @@ torch: quadratic, attention-like math inside chunks of ``CHUNK`` steps, a
 linear recurrence of an fp32 (B, H, P, N) state across them.  The CPU path
 of ``ops.ssd`` and the tests use it, and ``chip_smoke.py`` holds the CUDA
 kernel against it on the card; nothing on the card's main path calls it.
+
+``ssd_passes_ref`` is the same function computed the way the ``tc``
+variant of the CUDA kernel computes it: three passes (chunk states, state
+passing, chunk scan) over head groups, with the tensor cores' bf16
+operands rounded where the kernel rounds them.  Only the tests use it.
 """
 from __future__ import annotations
 
@@ -72,3 +77,81 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)[:, :S] if ys else xf.new_zeros((B, 0, H, P))
     return y.to(x.dtype), h
+
+
+def _bf16(t: torch.Tensor, on: bool) -> torch.Tensor:
+    """``t`` rounded to bf16 and back when ``on`` (a tensor-core operand)."""
+    return t.to(torch.bfloat16).to(torch.float32) if on else t
+
+
+def ssd_passes_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor,
+                   init_state: Optional[torch.Tensor] = None, *,
+                   heads_per_block: int = 4, bf16_operands: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_ref``'s function by the ``tc`` kernel's three passes, over
+    chunks of ``CHUNK`` steps and groups of ``heads_per_block`` heads (the
+    last group may be smaller):
+
+    1. chunk states S_c = (x dt e^(cum_last - cum))^T B_c per (chunk, head);
+    2. state passing, sequential over chunks only: h_in[c] = h, then
+       h = e^(cum_last[c]) h + S_c, from ``init_state`` or zeros;
+    3. chunk scan y_c = (C_c B_c^T o e^(cum_i - cum_j) dt_j, j <= i) x_c
+       + e^(cum_i) C_c h_in[c]^T, C_c B_c^T once per (chunk, head group).
+
+    ``bf16_operands`` rounds to bf16 what the kernel hands the tensor cores
+    in bf16: the decayed x dt of pass 1, h_in of pass 3 and the masked
+    decayed scores W of pass 3 (x, B and C are taken as they come).  The
+    ragged last chunk is padded here with identity steps (dt = 0); the
+    kernel masks it instead."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = CHUNK
+    nc = -(-S // L)
+    pad = nc * L - S
+    f32 = torch.float32
+    xf, dtf, bf, cf = x.to(f32), dt.to(f32), Bm.to(f32), Cm.to(f32)
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        bf = F.pad(bf, (0, 0, 0, pad))
+        cf = F.pad(cf, (0, 0, 0, pad))
+    xc = xf.reshape(B, nc, L, H, P)
+    dtc = dtf.reshape(B, nc, L, H)
+    bc = bf.reshape(B, nc, L, N)
+    cc = cf.reshape(B, nc, L, N)
+    cum = torch.cumsum(dtc * A.to(f32), dim=2)                   # (B,nc,L,H)
+    last = cum[:, :, -1]                                          # (B,nc,H)
+    groups = [slice(h0, min(h0 + heads_per_block, H))
+              for h0 in range(0, H, heads_per_block)]
+
+    # pass 1: chunk states, parallel over (row, chunk, head group)
+    states = x.new_empty((B, nc, H, P, N), dtype=f32)
+    for hs in groups:
+        scale = dtc[..., hs] * torch.exp(last[:, :, None, hs] - cum[..., hs])
+        xs = _bf16(xc[..., hs, :] * scale[..., None], bf16_operands)
+        states[:, :, hs] = torch.einsum("bcjhp,bcjn->bchpn", xs, bc)
+
+    # pass 2: state passing, sequential over chunks
+    h = (x.new_zeros((B, H, P, N), dtype=f32) if init_state is None
+         else init_state.to(f32))
+    h_in = torch.empty_like(states)
+    for c in range(nc):
+        h_in[:, c] = h
+        h = torch.exp(last[:, c])[..., None, None] * h + states[:, c]
+    h_op = _bf16(h_in, bf16_operands)
+
+    # pass 3: chunk scan, parallel over (row, chunk, head group)
+    tril = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+    y = x.new_empty((B, nc, L, H, P), dtype=f32)
+    for hs in groups:
+        scores = torch.einsum("bcin,bcjn->bcij", cc, bc)          # shared by the group
+        cg = cum[..., hs].transpose(2, 3)                         # (B,nc,h,L)
+        seg = (cg[..., :, None] - cg[..., None, :]).masked_fill(~tril, float("-inf"))
+        w = scores[:, :, None] * torch.exp(seg) * dtc[..., hs].transpose(2, 3)[..., None, :]
+        w = _bf16(w, bf16_operands)                               # (B,nc,h,i,j)
+        y_intra = torch.einsum("bchij,bcjhp->bcihp", w, xc[..., hs, :])
+        y_inter = (torch.einsum("bcin,bchpn->bcihp", cc, h_op[:, :, hs])
+                   * torch.exp(cum[..., hs])[..., None])
+        y[..., hs, :] = y_intra + y_inter
+    return y.reshape(B, nc * L, H, P)[:, :S].to(x.dtype), h
