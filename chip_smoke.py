@@ -17,10 +17,13 @@ through the flash-attention kernel (full-width prefill through its
 tensor-core variant, decode through its split-KV variant: counted by
 variant), every prefill of every Mamba-2 layer through the SSD kernel
 (at full width through its three-pass tensor-core variant: counted by
-variant), every prefill of every RG-LRU layer through the RG-LRU kernel.
+variant), every prefill of every RG-LRU layer through the RG-LRU kernel
+(counted by variant: the infer_prefill step through its chunked variant).
 Timed kernel cases report the variant, achieved TFLOP/s and GB/s, the
 share of the bound and, for short calls, the device time from
-``torch.profiler`` (for the SSD, its passes summed).
+``torch.profiler`` (for the SSD, its passes summed); the RG-LRU's timed
+cases time both its variants, and a sweep over shapes holds its plan
+against the faster one.
 One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -137,9 +140,9 @@ def phase_build():
                        if n and any(v in f for v in ("fa_tc_kernel", "fa_split_kernel",
                                                      "fa_decode_combine"))}
             check(not spilled, f"flash attention variants spill registers: {spilled}")
-        if name == "ssd":               # no SSD instance may spill
+        if name in ("ssd", "rglru"):    # no SSD or RG-LRU instance may spill
             spilled = {f: n for f, n in _spills_by_function(ptxas).items() if n}
-            check(not spilled, f"SSD kernels spill registers: {spilled}")
+            check(not spilled, f"{name} kernels spill registers: {spilled}")
 
 
 def _spills_by_function(ptxas):
@@ -427,8 +430,12 @@ def _rglru_bound(B, S, D, init):
 def rglru_case(name, B, S, D, init=False, strided=False, decay=None, timed=False):
     """The RG-LRU kernel against its plain version (``rglru_blocked``, the
     TPU kernel's blocked log-space algorithm) on the same fp32 inputs, as
-    the model gives them: h and the final state."""
+    the model gives them: h and the final state, through the variant
+    ``plan()`` picks.  Timed cases also time both variants by device time
+    (``variants_device_ms``: the kernel, and the kernel with the chunked
+    variant's scratch memset)."""
     import torch
+    from repro_torch.kernels.rglru.kernel import launch, plan, rglru_cuda
     from repro_torch.kernels.rglru.ops import rglru
     from repro_torch.kernels.rglru.ref import rglru_blocked
     dev = torch.device("cuda")
@@ -443,19 +450,36 @@ def rglru_case(name, B, S, D, init=False, strided=False, decay=None, timed=False
         a = torch.cat([torch.full((B, S, D // 2), decay[0]),
                        torch.full((B, S, D - D // 2), decay[1])], -1).to(dev)
     h0 = torch.randn(B, D, generator=g).to(dev) if init else None
+    variant, chunk = plan(B, S, D)
+    before = rglru_cuda.launches_by_variant[variant]
     h, h_last = rglru(x, a, init_state=h0)
     torch.cuda.synchronize()
+    check(rglru_cuda.launches_by_variant[variant] == before + 1,
+          f"{name}: the RG-LRU {variant} variant did not launch")
     want = rglru_blocked(x, a, h0)
     diff = (h - want).abs()
     ok = bool((diff <= RGLRU_TOL + RGLRU_TOL * want.abs()).all())
     res = dict(case=name, dtype="fp32", shape=dict(B=B, S=S, D=D), init_state=init,
-               strided=strided, max_abs_err=diff.max().item(),
+               strided=strided, variant=variant, chunk=chunk, max_abs_err=diff.max().item(),
                max_abs_err_last=(h_last - want[:, -1]).abs().max().item(), tol=RGLRU_TOL,
                finite=bool(torch.isfinite(h).all().item()))
     check(res["finite"] and ok, f"RG-LRU kernel disagrees with its plain version: {res}")
     if timed:
         res["bound_ms"], res["bound_by"] = _rglru_bound(B, S, D, init)
-        res["ms"] = time_ms(lambda: rglru(x, a, init_state=h0), iters=20)
+        call = lambda: rglru(x, a, init_state=h0)   # noqa: E731
+        res["ms"] = time_ms(call, iters=20)
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["device_ms"] = device_ms(call, "rglru_")
+        if isinstance(res["device_ms"], float):
+            res["bound_share_device"] = res["bound_ms"] / res["device_ms"]
+        res["variants_device_ms"] = {
+            v: [device_ms(lambda v=v: launch(x, a, h0, v), "rglru_"),
+                device_ms(lambda v=v: launch(x, a, h0, v))] for v in ("seq", "chunked")}
+        # not the same function: one elementwise call that moves the same
+        # bytes (a and x read, one (B, S, D) fp32 tensor written), the rate
+        # a streaming kernel reaches on this card
+        out = torch.empty_like(want)
+        res["stream_floor_device_ms"] = device_ms(lambda: torch.mul(a, x, out=out))
         res["plain_ms"] = time_ms(lambda: rglru_blocked(x, a, h0), iters=3, warmup=1)
         res["library_ms"] = None   # no single PyTorch call computes the recurrence
     emit("rglru_vs_plain", **res)
@@ -469,11 +493,41 @@ def phase_rglru_kernels():
     # infer_prefill step, B=4 S=128 the serve run's admission
     cases.append(rglru_case("recurrentgemma_prefill", 1, 2048, 4096, timed=True))
     cases.append(rglru_case("recurrentgemma_serve_admit", 4, 128, 4096, timed=True))
-    for S in (1, 50, 130):
+    for S in (1, 50, 130, 2048):
         cases.append(rglru_case("initial_state", 2, S, 4096, init=True))
+    # the chunk edges: a ragged last chunk, a last chunk of one step
+    cases.append(rglru_case("chunk_edge_s2047", 1, 2047, 4096))
+    cases.append(rglru_case("chunk_edge_s2049_init", 1, 2049, 4096, init=True))
     cases.append(rglru_case("strided_ragged", 3, 37, 300, strided=True))
-    cases.append(rglru_case("extreme_decays", 1, 64, 256, decay=(1e-6, 1 - 1e-6)))
+    cases.append(rglru_case("strided_ragged_chunked", 2, 300, 600, init=True, strided=True))
+    for S in (64, 200):   # seq, then chunked, where A underflows to 0
+        cases.append(rglru_case("extreme_decays", 1, S, 256, decay=(1e-6, 1 - 1e-6)))
     return cases
+
+
+def phase_rglru_plan_sweep():
+    """Device time of both RG-LRU variants over shapes around the plan's
+    thresholds (D = 4096): one line each, with the variant plan() picks
+    and the faster one (kernel and the chunked variant's memset both
+    counted).  Reported, not checked: the plan's constants come from it."""
+    import torch
+    from repro_torch.kernels.rglru.kernel import launch, plan
+    dev = torch.device("cuda")
+    D = 4096
+    picked_faster = 0
+    shapes = [(B, S) for S in (64, 128, 256, 2048) for B in (1, 2, 3, 4, 8, 16)]
+    for B, S in shapes:
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(B, S, D, device=dev, generator=g)
+        a = torch.sigmoid(torch.randn(B, S, D, device=dev, generator=g) * 2)
+        ms = {v: device_ms(lambda v=v: launch(x, a, None, v)) for v in ("seq", "chunked")}
+        variant, _ = plan(B, S, D)
+        faster = min(ms, key=lambda v: ms[v] if isinstance(ms[v], float) else float("inf"))
+        picked_faster += variant == faster
+        emit("rglru_plan_sweep", shape=dict(B=B, S=S, D=D), plan=variant, faster=faster,
+             device_ms=ms, bound_ms=_rglru_bound(B, S, D, False)[0])
+        del x, a
+    emit("rglru_plan_sweep_summary", shapes=len(shapes), plan_picked_faster=picked_faster)
 
 
 def phase_runner():
@@ -537,7 +591,7 @@ def _counters():
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    for kernel in ("flash_attention", "ssd"):
+    for kernel in ("flash_attention", "ssd", "rglru"):
         by_variant = _counters()[kernel].launches_by_variant
         for name in by_variant:
             by_variant[name] = 0
@@ -555,6 +609,11 @@ def _read_variants():
 def _read_ssd_variants():
     """SSD launches by variant (tc, simt)."""
     return dict(_counters()["ssd"].launches_by_variant)
+
+
+def _read_rglru_variants():
+    """RG-LRU launches by variant (seq, chunked)."""
+    return dict(_counters()["rglru"].launches_by_variant)
 
 
 def phase_profile(arch, model, steps=5):
@@ -622,7 +681,9 @@ def _profile_step(arch, task, call):
                               ("ssd_state_pass", "ssd_state_pass"),
                               ("ssd_chunk_scan", "ssd_chunk_scan"),
                               ("ssd_simt", "simt::ssd_kernel"),
-                              ("rglru", "rglru_kernel"))}
+                              ("rglru", "rglru_"),   # every RG-LRU kernel
+                              ("rglru_seq", "rglru_seq_kernel"),
+                              ("rglru_chunked", "rglru_chunked_kernel"))}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit("profile_step_full", arch=arch, task=task, wall_ms_profiled=wall_ms,
          device_ms=dev_ms if dev_ms else "not measured",
@@ -659,11 +720,12 @@ def phase_full_width(arch, per_forward):
     the peak device memory.  ``per_forward`` maps each kernel of the path
     to its launches (per prefill forward, per decode step); every other
     kernel must not launch.  Returns the serve run's launch counts and its
-    flash-attention and SSD launches by variant."""
+    flash-attention, SSD and RG-LRU launches by variant."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
     from repro_torch.core.suite import get_benchmark
+    from repro_torch.kernels.rglru.kernel import plan as rglru_plan
     from repro_torch.launch import serve
     cfg = get_arch(arch)
     left = _free_card()
@@ -678,6 +740,7 @@ def phase_full_width(arch, per_forward):
     counts = _read_counts()
     variants = _read_variants()
     ssd_variants = _read_ssd_variants()
+    rglru_variants = _read_rglru_variants()
     text = buf.getvalue()
     print(text, end="", flush=True)
     m = re.search(r"served (\d+) requests .*?: (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, "
@@ -694,13 +757,18 @@ def phase_full_width(arch, per_forward):
     expected_variants = {"tc": fa_pre * admits, "split": fa_dec * steps, "simt": 0}
     # full-width bf16 prefill runs only the SSD's tensor-core variant
     expected_ssd_variants = {"tc": expected["ssd"], "simt": 0}
+    # admissions of 1, 2 or 4 rows (rounded to powers of two) of 128-token
+    # prompts: plan() picks per shape, so each variant runs whole forwards
+    rg_pre = rate["rglru"][0]
+    rglru_whole = all(n % rg_pre == 0 for n in rglru_variants.values()) if rg_pre else True
     emit("serve_full", arch=arch, argv=argv, requests=served, tokens=tokens,
          tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
          decode_steps=steps, admit_calls=admits, kernel_launches=counts,
          expected_launches=expected, flash_launches_by_variant=variants,
          expected_flash_launches_by_variant=expected_variants,
          ssd_launches_by_variant=ssd_variants,
-         expected_ssd_launches_by_variant=expected_ssd_variants)
+         expected_ssd_launches_by_variant=expected_ssd_variants,
+         rglru_launches_by_variant=rglru_variants)
     check(served == 8 and tokens == 8 * 16, f"{arch}: not every request was answered")
     check(counts == expected and all(counts[k] > 0 for k in per_forward),
           f"{arch}: launches {counts} for {admits} admission prefills and {steps} "
@@ -709,6 +777,9 @@ def phase_full_width(arch, per_forward):
           f"{arch}: flash launches by variant {variants}, expected {expected_variants}")
     check(ssd_variants == expected_ssd_variants,
           f"{arch}: SSD launches by variant {ssd_variants}, expected {expected_ssd_variants}")
+    check(sum(rglru_variants.values()) == counts["rglru"] and rglru_whole,
+          f"{arch}: RG-LRU launches by variant {rglru_variants} for {counts['rglru']} "
+          f"launches, {rg_pre} a forward")
     freed = _free_card()                 # the CLI's model is gone
     check(freed < 1e9, f"{arch}: {freed} bytes still allocated after the serve CLI")
 
@@ -728,10 +799,14 @@ def phase_full_width(arch, per_forward):
         got = _read_counts()
         got_variants = _read_variants()
         got_ssd_variants = _read_ssd_variants()
+        got_rglru_variants = _read_rglru_variants()
         want = {k: pre_dec[col] for k, pre_dec in rate.items()}
         want_variants = dict.fromkeys(got_variants, 0)
         want_variants["split" if col else "tc"] = want["flash_attention"]
         want_ssd_variants = {"tc": want["ssd"], "simt": 0}
+        want_rglru_variants = dict.fromkeys(got_rglru_variants, 0)
+        if want["rglru"]:   # the b1 s2048 prefill: the variant plan() picks
+            want_rglru_variants[rglru_plan(batch, 2048, cfg.lru_width)[0]] = want["rglru"]
         logits = out[0]
         check(tuple(logits.shape) == (batch, 1, cfg.vocab)
               and bool(torch.isfinite(logits.float()).all().item()),
@@ -742,12 +817,15 @@ def phase_full_width(arch, per_forward):
         emit("step_full", arch=arch, task=task, batch=batch, seq=2048,
              median_us=meas.median_us, p10_us=meas.p10_us, p90_us=meas.p90_us,
              launches_per_forward=got, flash_launches_by_variant=got_variants,
-             ssd_launches_by_variant=got_ssd_variants, kv_cache_slots=kv_slots)
+             ssd_launches_by_variant=got_ssd_variants,
+             rglru_launches_by_variant=got_rglru_variants, kv_cache_slots=kv_slots)
         check(got == want, f"{arch} {task}: launches {got} in one forward, expected {want}")
         check(got_variants == want_variants, f"{arch} {task}: flash launches by variant "
               f"{got_variants}, expected {want_variants}")
         check(got_ssd_variants == want_ssd_variants, f"{arch} {task}: SSD launches by "
               f"variant {got_ssd_variants}, expected {want_ssd_variants}")
+        check(got_rglru_variants == want_rglru_variants, f"{arch} {task}: RG-LRU launches "
+              f"by variant {got_rglru_variants}, expected {want_rglru_variants}")
         if task == "infer_prefill":
             _profile_step(arch, task, lambda: fn(*args))
         del step, args, out, fn
@@ -757,12 +835,13 @@ def phase_full_width(arch, per_forward):
     check(peak < MEMORY_LIMIT, f"{arch}: peak device memory {peak} bytes")
     del built
     _free_card()
-    return counts, variants, ssd_variants
+    return counts, variants, ssd_variants, rglru_variants
 
 
 def _kernel_entry(name, source, replaces, launches, cases, main_case, dtype="bf16"):
     main = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
-    keys = ("case", "dtype", "variant", "n_split", "heads_per_block", "ms", "device_ms",
+    keys = ("case", "dtype", "variant", "n_split", "heads_per_block", "chunk", "ms",
+            "device_ms", "variants_device_ms", "stream_floor_device_ms",
             "plain_ms", "bound_ms", "bound_by", "bound_share", "bound_share_device", "tflops",
             "gbytes_per_s", "tflops_device", "gbytes_per_s_device", "library_ms",
             "library_device_ms", "max_abs_err")
@@ -787,18 +866,20 @@ def main():
     fa_cases = phase_kernels()
     ssd_cases = phase_ssd_kernels()
     rglru_cases = phase_rglru_kernels()
+    phase_rglru_plan_sweep()
     phase_runner()
     phase_reference_check("gemma-2b")
     phase_reference_check("mamba2-2.7b")
     # a prompt past the reduced window (64): the ring and its gather
     phase_reference_check("recurrentgemma-9b", seq=88, max_len=100, prompt_len=40)
-    launches, variants, ssd_variants = {}, {}, {}
+    launches, variants, ssd_variants, rglru_variants = {}, {}, {}, {}
     for arch, per_forward in (
             ("gemma-2b", {"flash_attention": (18, 18)}),
             ("mamba2-2.7b", {"ssd": (64, 0)}),
             # 26 recurrent layers (RG-LRU on prefill only), 12 local attention
             ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
-        launches[arch], variants[arch], ssd_variants[arch] = phase_full_width(arch, per_forward)
+        (launches[arch], variants[arch], ssd_variants[arch],
+         rglru_variants[arch]) = phase_full_width(arch, per_forward)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
@@ -812,9 +893,12 @@ def main():
                              "(mma.sync, cp.async)",
                        "simt": "fp32 and other head sizes, CUDA cores"},
              launches_by_variant=ssd_variants["mamba2-2.7b"]),
-        _kernel_entry("rglru", RGLRU_SOURCE, RGLRU_REPLACES,
-                      launches["recurrentgemma-9b"]["rglru"], rglru_cases,
-                      "recurrentgemma_prefill", dtype="fp32")],
+        dict(_kernel_entry("rglru", RGLRU_SOURCE, RGLRU_REPLACES,
+                           launches["recurrentgemma-9b"]["rglru"], rglru_cases,
+                           "recurrentgemma_prefill", dtype="fp32"),
+             variants={"chunked": "32-step chunks, decoupled look-back over time, rescan",
+                       "seq": "one thread per (row, lane) walks every step"},
+             launches_by_variant=rglru_variants["recurrentgemma-9b"])],
         "recurrentgemma_flash_attention_launches":
             launches["recurrentgemma-9b"]["flash_attention"],
         "recurrentgemma_flash_launches_by_variant": variants["recurrentgemma-9b"],

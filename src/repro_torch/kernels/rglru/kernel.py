@@ -1,25 +1,74 @@
-"""The hand-written CUDA RG-LRU scan kernel: build, load, launch.
+"""The hand-written CUDA RG-LRU scan kernels: plan, build, load, launch.
 
 Port of the Pallas TPU kernel ``repro.kernels.rglru.kernel.
 rglru_scan_kernel``; the source and its design note are in
 ``src/repro_torch/csrc/rglru.cu``.  It is built with ``nvcc`` at first
 use and bound with ``ctypes`` by ``repro_torch.kernels.build``.
+
+One C entry point, ``rglru_forward``, runs one of two variants, and the
+variant is chosen here, by ``plan()``, from shapes alone:
+
+* ``chunked`` — a scan over time in chunks of ``CHUNK`` steps: chunk
+                aggregates, a decoupled look-back over earlier chunks and a
+                rescan from the carry-in, in one launch, through a scratch
+                the wrapper allocates;
+* ``seq``     — the first design: one thread per (row, lane) walks every
+                step, where the walk is short or its lanes alone keep the
+                memory busy.
+
+No variant stands in for another that fails to build or launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import CSRC, CudaLibrary
 
+VARIANTS = ("seq", "chunked")
+VARIANT_IDS = {name: i for i, name in enumerate(VARIANTS)}
+CHUNK = 32                # steps a chunk of the chunked kernel (csrc/rglru.cu)
+# Lanes (B * D) from which the step-by-step walk keeps the memory as busy
+# as the chunked kernel: at every S measured, and at S <= 4 chunks, where
+# the chunked kernel's fixed cost (its memset, ticket and look-back) is
+# not repaid.  From chip_smoke.py's plan sweep on an H100 (PERF.md).
+FILL_LANES = 16 * 4096
+SHORT_FILL_LANES = 3 * 4096
+
+
+def plan(B: int, S: int, D: int) -> Tuple[str, int]:
+    """(variant, chunk) for one call at x (B, S, D): ``seq`` (chunk S)
+    where S is at most two chunks, where B*D reaches ``FILL_LANES``, or
+    where S is at most four chunks and B*D reaches ``SHORT_FILL_LANES``;
+    else ``chunked`` (chunk ``CHUNK``)."""
+    lanes = B * D
+    if (S <= 2 * CHUNK or lanes >= FILL_LANES
+            or (S <= 4 * CHUNK and lanes >= SHORT_FILL_LANES)):
+        return "seq", S
+    return "chunked", CHUNK
+
+
+def scratch_words(B: int, S: int, D: int) -> int:
+    """The ``chunked`` variant's scratch in 64-bit words: the ticket
+    counter, then per (row, chunk, lane) two words, each a published fp32
+    value with its state (the aggregate's A; its H or the inclusive end
+    state)."""
+    return 1 + 2 * B * math.ceil(S / CHUNK) * D
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.rglru_forward
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.rglru_chunk.restype = ctypes.c_int
+    if lib.rglru_chunk() != CHUNK:
+        raise RuntimeError(f"csrc/rglru.cu has chunk {lib.rglru_chunk()}, "
+                           f"kernel.py expects {CHUNK}")
 
 
 LIBRARY = CudaLibrary("rglru", CSRC / "rglru.cu", _bind)
@@ -32,12 +81,39 @@ def _fail(msg: str):
     raise ValueError(f"rglru: {msg}")
 
 
+def launch(x: torch.Tensor, a: torch.Tensor, init_state: Optional[torch.Tensor],
+           variant: str) -> torch.Tensor:
+    """Launch ``variant`` on tensors ``rglru_cuda`` has checked; counts
+    nothing (``chip_smoke.py`` times both variants through it)."""
+    B, S, D = x.shape
+    dev = x.device
+    h = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    words = None
+    if variant == "chunked":   # zeroed on the stream by the C entry
+        words = torch.empty(scratch_words(B, S, D), dtype=torch.int64, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    lib = library()
+    # the launch goes to the thread's current device: switch only if x is
+    # elsewhere (the switch costs host time on every call)
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rglru_forward(
+            x.data_ptr(), a.data_ptr(), ptr(init_state), h.data_ptr(), ptr(words),
+            B, S, D, x.stride(0), x.stride(1), a.stride(0), a.stride(1),
+            VARIANT_IDS[variant], stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru kernel ({variant}) launch failed: CUDA error {rc}")
+    return h
+
+
 def rglru_cuda(x: torch.Tensor, a: torch.Tensor,
                init_state: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel.  x, a (B, S, D) fp32 CUDA tensors with unit
-    stride over D (any row strides); ``init_state`` (B, D) fp32 contiguous
-    or None (zeros).  Returns a new contiguous h (B, S, D) fp32 with
-    h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 1e-12)) x_t."""
+    """Launch the planned variant.  x, a (B, S, D) fp32 CUDA tensors with
+    unit stride over D (any row strides); ``init_state`` (B, D) fp32
+    contiguous or None (zeros).  Returns a new contiguous h (B, S, D) fp32
+    with h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 1e-12)) x_t."""
     if x.ndim != 3:
         _fail(f"x must be (B, S, D), got {tuple(x.shape)}")
     B, S, D = x.shape
@@ -60,19 +136,14 @@ def rglru_cuda(x: torch.Tensor, a: torch.Tensor,
     for t in (a,) if init_state is None else (a, init_state):
         if t.device != dev:
             _fail(f"every tensor must lie on {dev}, got one on {t.device}")
-    h = torch.empty((B, S, D), dtype=torch.float32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rglru_forward(
-            x.data_ptr(), a.data_ptr(),
-            None if init_state is None else init_state.data_ptr(), h.data_ptr(),
-            B, S, D, x.stride(0), x.stride(1), a.stride(0), a.stride(1), stream)
-    if rc != 0:
-        raise RuntimeError(f"rglru kernel launch failed: CUDA error {rc}")
+    variant, _ = plan(B, S, D)
+    h = launch(x, a, init_state, variant)
     rglru_cuda.launches += 1
+    rglru_cuda.launches_by_variant[variant] += 1
     return h
 
 
-#: launches of the kernel since the count was last set to 0
+#: op calls that launched a kernel since the count was last set to 0
 rglru_cuda.launches = 0
+#: the same calls by variant
+rglru_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -10,8 +10,8 @@ Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.rglru_blocked``; a CUDA tensor launches the kernel, or the call
 raises.  There is no fallback from one to the other.  The reference's
 ``block_t``/``block_d`` arguments and tuning-DB lookup have no
-counterpart: the kernel scans step by step (``tuning/`` is ROADMAP
-Queue 1, slice 7).
+counterpart: ``kernel.plan()`` picks the kernel's variant from shapes
+(``tuning/`` is ROADMAP Queue 1, slice 7).
 """
 from __future__ import annotations
 

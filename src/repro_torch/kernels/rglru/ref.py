@@ -8,15 +8,19 @@ block of ``BLOCK_T`` steps, per feature lane,
     cum = cumsum(log max(a, 1e-37)),
 
 an (L x L) masked decay-weighted sum, with the state carried from block to
-block.  The CUDA kernel scans step by step instead, so holding one against
-the other on the card compares two formulations.  The CPU path of
+block.  The CUDA kernels scan step by step (in 32-step chunks with a
+look-back over time in the ``chunked`` variant) instead, so holding one
+against the other on the card compares two formulations.  The CPU path of
 ``ops.rglru`` and the tests use it; nothing on the card's main path does.
 
 ``rglru_sequential`` is the per-step recurrence of
 ``repro.kernels.rglru.ref.rglru_ref``, kept for the tests.
+``rglru_chunked_ref`` is the CUDA ``chunked`` variant's algorithm (chunk
+aggregates, carry-in over chunks, rescan), also for the tests only.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -78,3 +82,52 @@ def rglru_sequential(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t].float() * h + b[:, t].float()
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else a.new_zeros((B, 0, D), dtype=torch.float32)
+
+
+def _chunked(t: torch.Tensor, chunk: int, fill: float) -> torch.Tensor:
+    """(B, S, D) -> (B, n_chunks, chunk, D), the last chunk filled with
+    ``fill`` (identity steps: a = 1, b = 0)."""
+    B, S, D = t.shape
+    nc = math.ceil(S / chunk)
+    return F.pad(t, (0, 0, 0, nc * chunk - S), value=fill).reshape(B, nc, chunk, D)
+
+
+def chunk_aggregates(a: torch.Tensor, b: torch.Tensor, chunk: int):
+    """Each chunk's scan from a zero state, as the ``chunked`` kernel's
+    first step: a, b (B, S, D) -> (A, H) (B, n_chunks, D), A = prod a_t (a
+    direct product, so it may underflow to 0) and H the local end state."""
+    a4, b4 = _chunked(a.float(), chunk, 1.0), _chunked(b.float(), chunk, 0.0)
+    A = torch.ones_like(a4[:, :, 0])
+    H = torch.zeros_like(A)
+    for u in range(chunk):
+        H = a4[:, :, u] * H + b4[:, :, u]
+        A = A * a4[:, :, u]
+    return A, H
+
+
+def rglru_chunked_ref(x: torch.Tensor, a: torch.Tensor,
+                      init_state: Optional[torch.Tensor] = None,
+                      chunk: int = 32) -> torch.Tensor:
+    """The ``chunked`` kernel's algorithm: x, a (B, S, D), ``init_state``
+    (B, D) or None -> h (B, S, D) fp32.  Time is cut into chunks of
+    ``chunk`` steps (the last one ragged, filled with identity steps); each
+    chunk's aggregate comes from ``chunk_aggregates``; the carry-in of
+    chunk c is the aggregates of chunks 0 .. c-1 applied to
+    ``init_state`` in order; each chunk is scanned again from its
+    carry-in."""
+    B, S, D = x.shape
+    b = gated_input(x, a)
+    A, H = chunk_aggregates(a, b, chunk)
+    carry = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    carries = []
+    for c in range(A.shape[1]):
+        carries.append(carry)
+        carry = A[:, c] * carry + H[:, c]
+    a4, b4 = _chunked(a.float(), chunk, 1.0), _chunked(b, chunk, 0.0)
+    s = torch.stack(carries, dim=1)
+    out = []
+    for u in range(chunk):
+        s = a4[:, :, u] * s + b4[:, :, u]
+        out.append(s)
+    return torch.stack(out, dim=2).reshape(B, -1, D)[:, :S]
