@@ -23,7 +23,13 @@ Timed kernel cases report the variant, achieved TFLOP/s and GB/s, the
 share of the bound and, for short calls, the device time from
 ``torch.profiler`` (for the SSD, its passes summed); the RG-LRU's timed
 cases time both its variants, and a sweep over shapes holds its plan
-against the faster one.
+against the faster one.  Training: the flash-attention backward kernel
+against its plain version (``attention_bwd_ref``) over gemma-2b's full
+width, the reduced config, every mask, softcap and K=2, with a bitwise
+repeat; two reduced gemma-2b train steps on the card against the CPU;
+then gemma-2b trained at full width (B=1, S=2048) through the suite's
+train step, whose every attention layer runs the forward kernel twice
+(once more under ``remat="full"``) and the backward kernel once.
 One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -61,6 +67,13 @@ RGLRU_TOL = 2e-5                               # as tests/test_kernels.py (fp32)
 RGLRU_SOURCE = "src/repro_torch/csrc/rglru.cu"
 RGLRU_REPLACES = "src/repro/kernels/rglru/kernel.py:70"
 MEMORY_LIMIT = 50e9                            # bytes: one full model at a time
+FA_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FA_BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its XLA attention "
+                   "(src/repro/models/layers.py:154) by autodiff")
+# relative to each gradient's largest |value|: fp32 the same math in other
+# sums; bf16 inputs and gradients rounded to bf16
+BWD_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+TRAIN_MEMORY_LIMIT = 72e9                      # bytes: gemma-2b training, B=1 S=2048
 
 
 def emit(phase, **kw):
@@ -105,11 +118,13 @@ def phase_build():
     """Build every kernel of the port at once: one nvcc per source, each in
     its own thread (nvcc runs as a subprocess, so the builds overlap)."""
     from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rglru import kernel as rk
     from repro_torch.kernels.ssd import kernel as sk
+    fa_bwd = SimpleNamespace(library=fa.bwd_library, build_info=fa.bwd_build_info)
     t0 = time.perf_counter()
-    mods = (fa, sk, rk)
+    mods = (fa, fa_bwd, sk, rk)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.library) for m in mods]:
             f.result()
@@ -126,6 +141,9 @@ def phase_build():
                 dynamic_smem_bytes_p16_n16=sk.shared_memory_bytes(16, 16),
                 dynamic_smem_bytes_tc_chunk_state=sk.shared_memory_bytes(64, 128, "chunk_state"),
                 dynamic_smem_bytes_tc_chunk_scan=sk.shared_memory_bytes(64, 128, "chunk_scan"))),
+            ("flash_attention_bwd", fa_bwd, FA_BWD_SOURCE, {
+                f"dynamic_smem_bytes_pass{i}_d256": fa.bwd_shared_memory_bytes(i, 256)
+                for i in (1, 2, 3)}),
             ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0))):
         ptxas = mod.build_info.get("ptxas", "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
@@ -140,7 +158,7 @@ def phase_build():
                        if n and any(v in f for v in ("fa_tc_kernel", "fa_split_kernel",
                                                      "fa_decode_combine"))}
             check(not spilled, f"flash attention variants spill registers: {spilled}")
-        if name in ("ssd", "rglru"):    # no SSD or RG-LRU instance may spill
+        if name in ("ssd", "rglru", "flash_attention_bwd"):   # none of these may spill
             spilled = {f: n for f, n in _spills_by_function(ptxas).items() if n}
             check(not spilled, f"{name} kernels spill registers: {spilled}")
 
@@ -194,18 +212,7 @@ def device_ms(fn, name="", iters=20):
     (every kernel by default), from ``torch.profiler`` over ``iters``
     calls: without the host's dispatch gaps that back-to-back timing by
     events includes."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    return us / 1e3 / iters if us else "not measured"
+    return _device_ms_by(fn, (name,), iters)[name]
 
 
 def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal",
@@ -309,6 +316,121 @@ def phase_kernels():
     # the tensor-core variant at the smaller head dims it instantiates
     for D in (64, 128):
         cases.append(kernel_case(f"tc_d{D}", "bf16", 2, 2048, 2048, 16, 2, D, timed=True))
+    return cases
+
+
+def _device_ms_by(fn, names, iters=5):
+    """Device time per call of ``fn`` from ``torch.profiler`` over
+    ``iters`` calls, summed over the kernels whose names contain each of
+    ``names`` ("" = every kernel): one profile for several names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name in names:
+        us = sum(e.self_device_time_total for e in kernels if name in e.key)
+        out[name] = us / 1e3 / iters if us else "not measured"
+    return out
+
+
+def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", window=0,
+                prefix_len=0, softcap=0.0):
+    """The backward kernel against ``attention_bwd_ref`` on the card, on
+    the forward kernel's own output: the worst error relative to each
+    gradient's largest |value|, and a second run that must be bitwise
+    equal.  Timed cases add device time (events; ``torch.profiler`` by
+    pass), TFLOP/s, the bound, the plain version, and the backward of
+    ``scaled_dot_product_attention`` alone as a yardstick (causal only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    dev = torch.device("cuda")
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = [torch.randn(sh, generator=g).to(dev, tdt)
+                   for sh in ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D))]
+    kw = dict(mask_type=mask_type, window=window, prefix_len=prefix_len, softcap=softcap)
+    o = flash_attention(q, k, v, **kw)
+    call = lambda: flash_attention_bwd_cuda(   # noqa: E731
+        q, k, v, o, do, q_offset=0, kv_len=S, scale=D ** -0.5, **kw)
+    before = flash_attention_bwd_cuda.launches
+    got = call()
+    torch.cuda.synchronize()
+    check(flash_attention_bwd_cuda.launches == before + 1, f"{name}: the backward did not launch")
+    again = call()
+    torch.cuda.synchronize()
+    want = attention_bwd_ref(q, k, v, o, do, **kw)
+    rel = {n: ((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+           for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, H=H, K=K, D=D), mask=mask_type,
+               window=window, prefix_len=prefix_len, softcap=softcap, rel_err=rel,
+               max_rel_err=max(rel.values()),
+               max_abs_err=max((a.float() - w.float()).abs().max().item()
+                               for a, w in zip(got, want)),
+               tol=BWD_TOL[dtype],
+               bitwise_equal_rerun=all(torch.equal(a, b) for a, b in zip(got, again)),
+               finite=all(bool(torch.isfinite(a).all().item()) for a in got))
+    check(res["finite"] and res["max_rel_err"] <= BWD_TOL[dtype] and res["bitwise_equal_rerun"],
+          f"backward kernel disagrees with its plain version or is not deterministic: {res}")
+    if timed:
+        vis = _visible(B, S, S, mask_type, window, prefix_len, 0, None, dev)
+        flops = 10.0 * H * D * int(vis.sum().item())    # 5 products of 2 D per pair and head
+        elem = 2 if dtype == "bf16" else 4
+        nbytes = elem * 4 * B * S * D * (H + K)          # q, o, do, dq; k, v, dk, dv
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        res["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        res["ms"] = time_ms(call, iters=10, warmup=2)
+        dev_ms = _device_ms_by(call, ("fa_bwd_", "fa_bwd_lse", "fa_bwd_dkv_kernel",
+                                      "fa_bwd_dkv_combine", "fa_bwd_dq"))
+        res["device_ms"] = dev_ms["fa_bwd_"]
+        res["passes_device_ms"] = {"lse_delta": dev_ms["fa_bwd_lse"],
+                                   "dk_dv": dev_ms["fa_bwd_dkv_kernel"],
+                                   "dk_dv_combine": dev_ms["fa_bwd_dkv_combine"],
+                                   "dq": dev_ms["fa_bwd_dq"]}
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["plain_ms"] = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw), iters=3, warmup=1)
+        res["library_ms"] = None
+        if mask_type == "causal" and softcap == 0.0:
+            # yardstick only, never called by the port: SDPA's backward alone
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=D ** -0.5,
+                                                 enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)   # noqa: E731
+            res["library_ms"] = time_ms(lib, iters=10, warmup=2)
+            res["library_device_ms"] = device_ms(lib, iters=5)
+            res["library"] = ("backward of torch.nn.functional.scaled_dot_product_attention"
+                              "(is_causal=True, enable_gqa=True)")
+    emit("fa_backward_kernels", **res)
+    return res
+
+
+def phase_fa_backward_kernels():
+    cases = []
+    for dtype in ("bf16", "fp32"):
+        # gemma-2b full width: 8 query heads over 1 kv head of 256, causal
+        cases.append(fa_bwd_case("gemma2b_train", dtype, 1, 2048, 8, 1, 256, timed=True))
+        cases.append(fa_bwd_case("reduced", dtype, 2, 64, 4, 1, 32))
+        cases.append(fa_bwd_case("local", dtype, 1, 512, 8, 1, 128, mask_type="local",
+                                 window=128))
+        cases.append(fa_bwd_case("prefix", dtype, 1, 512, 8, 1, 128, mask_type="prefix",
+                                 prefix_len=100))
+        cases.append(fa_bwd_case("softcap", dtype, 1, 512, 8, 1, 256, softcap=30.0))
+        cases.append(fa_bwd_case("k2", dtype, 2, 256, 8, 2, 64))
+    emit("fa_backward_summary", cases=len(cases),
+         worst_rel_err={d: max(c["max_rel_err"] for c in cases if c["dtype"] == d)
+                        for d in ("bf16", "fp32")}, tol=BWD_TOL)
     return cases
 
 
@@ -534,8 +656,11 @@ def phase_runner():
     from repro_torch.runner import BenchmarkRunner, Scenario
     runner = BenchmarkRunner(device="cuda")
     for arch in ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b"):
-        for task, kw in (("infer_prefill", {}), ("infer_decode", {}),
-                         ("serve", dict(batch=8, seq=32))):
+        # training on the card: the dense family (the SSD and RG-LRU
+        # kernels have no backward yet)
+        train = (("train", {}),) if arch == "gemma-2b" else ()
+        for task, kw in train + (("infer_prefill", {}), ("infer_decode", {}),
+                                 ("serve", dict(batch=8, seq=32))):
             sc = Scenario(arch=arch, task=task, **kw)
             rr = runner.run(sc)
             emit("runner_cell", scenario=sc.name, status=rr.status, median_us=rr.median_us,
@@ -579,12 +704,176 @@ def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
     check(digests["cpu"] == digests["cuda"], f"{arch}: card vs CPU serve tokens differ")
 
 
+def phase_train_reference_check(steps=2, batch=2, seq=24):
+    """Training on the card against the CPU: the same reduced gemma-2b
+    weights (fp32 compute), the suite's train step twice on each (the
+    same numpy tokens), then loss and grad_norm within 1e-4 relative,
+    mu and nu within 1e-4 of each leaf's largest |value|, params within
+    1e-4 absolute (the default schedule's lr is 3e-6 and 6e-6 here)."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import opt_state_to_numpy, params_to_numpy
+    from repro_torch.configs import get_arch
+    from repro_torch.core.suite import Built, get_benchmark
+    from repro_torch.models import build_model
+    cfg = get_arch("gemma-2b").reduced(compute_dtype=torch.float32)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    runs = {}
+    for name, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+        step, (state, tokens), _ = get_benchmark("gemma-2b", "train").make(
+            batch=batch, seq=seq, built=Built(cfg, model))
+        _reset_counts()
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, tokens)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[name] = (metrics, _read_counts(), params_to_numpy(state[0]),
+                      opt_state_to_numpy(state[1]))
+    (mc, _, pc, oc), (mg, counts, pg, og) = runs["cpu"], runs["cuda"]
+    rel = lambda a, b: abs(a - b) / abs(b)   # noqa: E731
+    leaf_err = lambda got, want: max(   # noqa: E731
+        float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        for (_, g), (_, w) in zip(_leaves(got), _leaves(want)))
+    res = dict(steps=steps, batch=batch, seq=seq, tol=1e-4,
+               loss_cpu=[m["loss"] for m in mc], loss_cuda=[m["loss"] for m in mg],
+               loss_rel_err=max(rel(g["loss"], c["loss"]) for g, c in zip(mg, mc)),
+               grad_norm_rel_err=max(rel(g["grad_norm"], c["grad_norm"]) for g, c in zip(mg, mc)),
+               params_max_abs_err=max(float(np.abs(g - w).max())
+                                      for (_, g), (_, w) in zip(_leaves(pg), _leaves(pc))),
+               mu_rel_err=leaf_err(og["mu"], oc["mu"]), nu_rel_err=leaf_err(og["nu"], oc["nu"]),
+               kernel_launches_cuda=counts)
+    emit("train_reference_check", **res)
+    check(counts["flash_attention_bwd"] == steps * cfg.n_layers,
+          f"train reference check: backward launches {counts}")
+    check(max(res["loss_rel_err"], res["grad_norm_rel_err"], res["params_max_abs_err"],
+              res["mu_rel_err"], res["nu_rel_err"]) <= 1e-4,
+          f"training on the card differs from the CPU: {res}")
+
+
+def _profile_train_step(call):
+    """Device time of one train step by kernel class (``torch.profiler``):
+    flash forward and backward (by pass), cuBLAS matmuls, the AdamW
+    ``foreach`` kernels, casts and copies, the rest; and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    classes = (("flash_bwd_lse_delta", ("fa_bwd_lse",)),
+               ("flash_bwd_dk_dv", ("fa_bwd_dkv",)),   # the pass and its combine
+               ("flash_bwd_dq", ("fa_bwd_dq",)),
+               ("flash_fwd", ("fa_tc_kernel", "fa_kernel<", "fa_split", "fa_decode_combine")),
+               ("matmul_cublas", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
+               ("adamw_foreach", ("multi_tensor_apply", "foreach")),
+               ("casts_copies", ("copy", "Copy")))
+    by_class = dict.fromkeys([c for c, _ in classes] + ["other"], 0.0)
+    for e in kernels:
+        name = next((c for c, keys in classes if any(key in e.key for key in keys)), "other")
+        by_class[name] += e.self_device_time_total / 1e3
+    dev_ms = sum(by_class.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    emit("profile_train_step_full", wall_ms_profiled=wall_ms,
+         device_ms=dev_ms if dev_ms else "not measured",
+         device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
+         device_ms_by_class=by_class,
+         share_by_class={k: v / dev_ms for k, v in by_class.items()} if dev_ms else {},
+         top_kernels=[dict(name=e.key[:80], calls=e.count, ms=e.self_device_time_total / 1e3)
+                      for e in top])
+
+
+def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
+    """``arch`` trained at its full published width through the suite's
+    train step (``jit_donated``: the state updated in place), random
+    weights from seed 0.  The main path is one train step, with every
+    launch count set to 0 just before it and read just after: 36 forward
+    launches (18 layers, each recomputed once under ``remat="full"``), all
+    ``tc``, and 18 backward launches.  Then ``harness.measure`` (median of
+    5 after a warmup), a profile of one step, four steps of a schedule
+    with one warmup step on the same batch (the loss must fall), and the
+    peak device memory."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import harness
+    from repro_torch.core.suite import get_benchmark
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    cfg = get_arch(arch)
+    left = _free_card()
+    check(left < 1e9, f"{arch} train: {left} bytes still allocated before the phase")
+    torch.cuda.reset_peak_memory_stats()
+    built = serve.built_for_cfg(cfg)
+    step, args, mutable = get_benchmark(arch, "train").make(batch=batch, seq=seq, built=built)
+    losses = []
+
+    def recorded(state, tokens):
+        out = step(state, tokens)
+        losses.append(out[1]["loss"])
+        return out
+
+    fn = harness.prepare(recorded, (0,), mutable=mutable)
+    model = args[0][0]
+    probe = model.blocks[0].attn["wq"][0, 0].detach().clone()
+    _reset_counts()                      # main path: one train step
+    state, metrics = fn(*args)
+    torch.cuda.synchronize()
+    counts, variants = _read_counts(), _read_variants()
+    n = cfg.n_layers
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n, "ssd": 0, "rglru": 0}
+    want_variants = {"tc": 2 * n, "split": 0, "simt": 0}
+    args = (state, args[1])
+    final = []
+    meas = harness.measure(f"{arch}/train/b{batch}/s{seq}/fp32/jit_donated", recorded, args,
+                           (0,), runs=5, warmup=1, jitted=fn, final_args=final)
+    args = final[0]
+
+    def one_step():
+        nonlocal args
+        args = (fn(*args)[0], args[1])
+
+    _profile_train_step(one_step)
+    changed = not torch.equal(probe, model.blocks[0].attn["wq"][0, 0])
+    all_finite = all(bool(torch.isfinite(x).item()) for x in losses)
+    fast = make_train_step(cfg, TrainHyper(warmup_steps=1))
+    state, tokens = args
+    repeated = []
+    for _ in range(4):
+        state, m = fast(state, tokens)
+        repeated.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit("train_full", arch=arch, batch=batch, seq=seq, mode="jit_donated",
+         median_us=meas.median_us, p10_us=meas.p10_us, p90_us=meas.p90_us,
+         tokens_per_s=batch * seq / (meas.median_us * 1e-6),
+         kernel_launches_per_step=counts, expected_launches_per_step=want,
+         flash_launches_by_variant=variants, expected_flash_launches_by_variant=want_variants,
+         losses=[float(x) for x in losses], steps=len(losses), all_losses_finite=all_finite,
+         params_changed=changed, repeated_batch_losses=repeated,
+         max_memory_allocated=peak, limit=TRAIN_MEMORY_LIMIT,
+         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    check(counts == want, f"{arch} train: launches {counts} in one step, expected {want}")
+    check(variants == want_variants,
+          f"{arch} train: flash launches by variant {variants}, expected {want_variants}")
+    check(all_finite and changed, f"{arch} train: losses {losses}, params changed {changed}")
+    check(repeated[-1] < repeated[0], f"{arch} train: loss did not fall on one batch: {repeated}")
+    check(peak < TRAIN_MEMORY_LIMIT, f"{arch} train: peak device memory {peak} bytes")
+    del built, step, args, fn, model, state, fast
+    _free_card()
+    return counts
+
+
 def _counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
     from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
-    return {"flash_attention": flash_attention_cuda, "ssd": ssd_cuda,
+    return {"flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda, "ssd": ssd_cuda,
             "rglru": rglru_cuda}
 
 
@@ -841,10 +1130,10 @@ def phase_full_width(arch, per_forward):
 def _kernel_entry(name, source, replaces, launches, cases, main_case, dtype="bf16"):
     main = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
     keys = ("case", "dtype", "variant", "n_split", "heads_per_block", "chunk", "ms",
-            "device_ms", "variants_device_ms", "stream_floor_device_ms",
+            "device_ms", "passes_device_ms", "variants_device_ms", "stream_floor_device_ms",
             "plain_ms", "bound_ms", "bound_by", "bound_share", "bound_share_device", "tflops",
             "gbytes_per_s", "tflops_device", "gbytes_per_s_device", "library_ms",
-            "library_device_ms", "max_abs_err")
+            "library_device_ms", "max_abs_err", "max_rel_err")
     timed = [{k: c[k] for k in keys if k in c} for c in cases if "ms" in c]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -864,6 +1153,7 @@ def main():
     smi = phase_device()
     phase_build()
     fa_cases = phase_kernels()
+    bwd_cases = phase_fa_backward_kernels()
     ssd_cases = phase_ssd_kernels()
     rglru_cases = phase_rglru_kernels()
     phase_rglru_plan_sweep()
@@ -872,6 +1162,7 @@ def main():
     phase_reference_check("mamba2-2.7b")
     # a prompt past the reduced window (64): the ring and its gather
     phase_reference_check("recurrentgemma-9b", seq=88, max_len=100, prompt_len=40)
+    phase_train_reference_check()
     launches, variants, ssd_variants, rglru_variants = {}, {}, {}, {}
     for arch, per_forward in (
             ("gemma-2b", {"flash_attention": (18, 18)}),
@@ -880,6 +1171,7 @@ def main():
             ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
         (launches[arch], variants[arch], ssd_variants[arch],
          rglru_variants[arch]) = phase_full_width(arch, per_forward)
+    train_launches = phase_train_full()
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
@@ -898,7 +1190,12 @@ def main():
                            "recurrentgemma_prefill", dtype="fp32"),
              variants={"chunked": "32-step chunks, decoupled look-back over time, rescan",
                        "seq": "one thread per (row, lane) walks every step"},
-             launches_by_variant=rglru_variants["recurrentgemma-9b"])],
+             launches_by_variant=rglru_variants["recurrentgemma-9b"]),
+        dict(_kernel_entry("flash_attention_bwd", FA_BWD_SOURCE, FA_BWD_REPLACES,
+                           train_launches["flash_attention_bwd"], bwd_cases, "gemma2b_train"),
+             max_rel_err=max(c["max_rel_err"] for c in bwd_cases),
+             launches_per="gemma-2b full-width train step (B=1, S=2048)")],
+        "gemma2b_train_flash_forward_launches_per_step": train_launches["flash_attention"],
         "recurrentgemma_flash_attention_launches":
             launches["recurrentgemma-9b"]["flash_attention"],
         "recurrentgemma_flash_launches_by_variant": variants["recurrentgemma-9b"],

@@ -8,7 +8,11 @@ and returns the port's ``Model`` holding those weights.
 ``cache_from_numpy`` / ``cache_to_numpy`` do the same for caches (the
 dense KV cache, the ssm family's conv/SSM state, the hybrid family's
 ``groups``/``tail`` tree of RG-LRU states and ring KV caches), so a test
-can compare caches as well as logits.  Both walk the model's own
+can compare caches as well as logits.  ``params_to_numpy`` and
+``opt_state_to_numpy`` go the other way for training: a model's weights
+and an ``OptState``'s moments as the reference's stacked trees, so a
+test compares them leaf by leaf with the reference's ``(params,
+OptState)``.  The converters walk the model's own
 ``ParamDef`` trees, so every family's layout converts alike, and every
 leaf takes the dtype its ``ParamDef`` declares: the ssm family's
 ``A_log``, ``D``, ``dt_bias`` and cache ``ssm``, and the hybrid family's
@@ -80,3 +84,16 @@ def cache_to_numpy(cache: Mapping[str, Any]) -> dict:
     return {k: (leaf(v) if isinstance(v, torch.Tensor) else cache_to_numpy(v))
             for k, v in cache.items()}
 
+
+
+def params_to_numpy(model: Model) -> dict:
+    """The model's weights as the reference's param tree (stacked layer
+    axes), as numpy arrays (bf16 widened to float32)."""
+    return cache_to_numpy(model.stacked_params())
+
+
+def opt_state_to_numpy(opt) -> dict:
+    """An ``OptState`` as {"step", "mu", "nu"} numpy trees in the
+    reference's stacked layout."""
+    return {"step": np.asarray(int(opt.step)), "mu": cache_to_numpy(opt.mu),
+            "nu": cache_to_numpy(opt.nu)}

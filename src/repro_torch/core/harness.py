@@ -21,6 +21,7 @@ compiler modes and ``profiler/`` (ROADMAP Queue 1, slice 7).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import time
@@ -50,11 +51,16 @@ class Measurement:
 
 
 def clone_tree(x: Any) -> Any:
-    """A copy of every tensor in a nest of dicts, lists and tuples."""
+    """A copy of every tensor in a nest of dicts, lists, tuples (named ones
+    too) and modules (a train state's model is copied whole)."""
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x)
     if isinstance(x, dict):
         return {k: clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone_tree(v) for v in x))
     if isinstance(x, (list, tuple)):
         return type(x)(clone_tree(v) for v in x)
     return x
@@ -122,8 +128,8 @@ def _thread(out: Any, cur_args: Tuple, donate: Tuple[int, ...]) -> Tuple:
     """Thread a step's output state back into its donated argument slot.
 
     Suite convention: serving steps are ``(model, toks, cache) -> (logits,
-    cache)`` with ``donate == (2,)``; train steps will be ``(state, batch)
-    -> (state, metrics)`` with ``donate == (0,)``.
+    cache)`` with ``donate == (2,)``; train steps are ``(state, batch) ->
+    (state, metrics)`` with ``donate == (0,)``.
     """
     if donate == (0,) and isinstance(out, tuple) and len(out) == 2:
         return (out[0],) + cur_args[1:]

@@ -2,8 +2,10 @@
 
 Every entry is a computation-phase benchmark (paper §2.2): one step over
 device-resident inputs, no data loading inside the measured region.  The
-port registers the inference tasks of the archs it has ported;
-``task="train"`` comes with the training slice (ROADMAP Queue 1, slice 4).
+port registers the train, prefill and decode tasks of the archs it has
+ported.  On the card, training runs the dense family only: the ssm and
+hybrid families' kernels (SSD, RG-LRU) have no backward yet, and their
+CUDA launches raise under autograd (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -61,16 +63,16 @@ class Benchmark:
              device: DeviceLike = "cuda"):
         """-> (step_fn, args, donate_argnums).
 
-        The arguments are ``(model, batch-or-tokens, cache)``; the step
-        updates the cache (slot 2) in place.  Tokens are drawn from numpy
-        with seed 1, on the model's device.  ``device`` is used only when
-        ``built`` is not given.
+        Inference: the arguments are ``(model, batch-or-tokens, cache)``;
+        the step updates the cache (slot 2) in place.  Training: the
+        arguments are ``(state, batch)`` with ``state = (model, OptState)``
+        over a copy of the build's weights (the cached ``Built`` stays
+        frozen for the other tasks), and the step updates the state (slot
+        0) in place.  Tokens are drawn from numpy with seed 1, on the
+        model's device.  ``device`` is used only when ``built`` is not
+        given.
         """
-        if self.task == "train":
-            raise NotImplementedError(
-                "task='train' comes with the training slice (ROADMAP "
-                "Queue 1, slice 4: optim/, launch/steps.py, loss)")
-        if self.task not in ("infer_prefill", "infer_decode"):
+        if self.task not in ("train", "infer_prefill", "infer_decode"):
             raise ValueError(self.task)
         if built is None:
             built = build_arch(self.arch, overrides, device)
@@ -79,6 +81,17 @@ class Benchmark:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
                                              dtype=np.int64).astype(np.int32))
         toks = toks.to(model.device)
+        if self.task == "train":
+            from repro_torch.launch.steps import make_train_step
+            from repro_torch.models.model import Model
+            from repro_torch.optim.adamw import adamw_init
+            # the state's own model over a copy of the weights: the state
+            # is updated in place, and the cached Built must stay valid
+            # (and grad-free) for the other tasks of this arch
+            params = model.stacked_params()
+            trained = Model(cfg, params).requires_grad_(True)
+            state = (trained, adamw_init(params))
+            return make_train_step(cfg), (state, {"tokens": toks}), (0,)
         cache = model.init_cache(batch, seq + 8)
         if self.task == "infer_prefill":
             return ((lambda m, b, c: m.prefill(b, c)),

@@ -20,6 +20,13 @@ variant is chosen here, by ``plan()``, from shapes and dtype alone:
               other head_dim (a multiple of 4, at most 256).
 
 No variant stands in for another that fails to build or launch.
+
+The backward, ``flash_attention_bwd_cuda``, is a kernel of its own
+(``csrc/flash_attention_bwd.cu``, C entry ``fa_backward``, its own
+library): three passes on the CUDA cores (lse and delta; dk and dv per
+key block and query chunk, then a fixed-order combine of the chunks; dq
+per row block), for scalar ``q_offset``/``kv_len`` only.
+It has no TPU counterpart: the reference trains through XLA attention.
 """
 from __future__ import annotations
 
@@ -110,6 +117,45 @@ def _rows_arg(name: str, x: RowsArg, B: int, device):
     return 0, (t.expand(B) if t.ndim == 0 else t).contiguous()
 
 
+def _check_inputs(fn: str, mask_type: str, **ts: torch.Tensor):
+    """Check the kernels' common contract and return (B, Sq, Sk, H, K, D):
+    CUDA tensors of one dtype (bf16 or fp32), q-shaped (B, Sq, H, D) and
+    k-shaped (B, Sk, K, D) with H % K == 0, head_dim a multiple of 4 up to
+    256, contiguous and 16-byte aligned.  ``ts`` holds q and k and any of
+    v, o, do (o and do are q-shaped, v k-shaped)."""
+    q, k = ts["q"], ts["k"]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
+                         f"(bf16 or fp32)")
+    for name, t in ts.items():
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype} on "
+                             f"{t.device}, q is {q.dtype} on {dev}")
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention: {', '.join(ts)} must be 4-d")
+    B, Sq, H, D = q.shape
+    _, Sk, K, _ = k.shape
+    want = {name: (q.shape if name in ("q", "o", "do") else (B, Sk, K, D))
+            for name in ts}
+    if any(t.shape != want[name] for name, t in ts.items()) or H % K:
+        shapes = ", ".join(f"{n} {tuple(t.shape)}" for n, t in ts.items())
+        raise ValueError(f"flash_attention: shapes {shapes} disagree")
+    if D % 4 or D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} must be a multiple "
+                         f"of 4 and at most {MAX_HEAD_DIM}")
+    if not all(t.is_contiguous() for t in ts.values()):
+        raise ValueError(f"flash_attention: {', '.join(ts)} must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts.values()):
+        raise ValueError(f"flash_attention: {', '.join(ts)} must be 16-byte "
+                         f"aligned")
+    if mask_type not in MASK_IDS:
+        raise ValueError(f"unknown mask_type {mask_type!r}")
+    return B, Sq, Sk, H, K, D
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          q_offset: RowsArg, kv_len: RowsArg,
                          mask_type: str, window: int, prefix_len: int,
@@ -118,32 +164,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous CUDA tensors of one dtype (bf16 or fp32), 16-byte aligned;
     ``q_offset``/``kv_len`` ints or per-row (B,) integer tensors.  Returns
     a new (B, Sq, H, D) tensor."""
+    B, Sq, Sk, H, K, D = _check_inputs("flash_attention_cuda", mask_type,
+                                       q=q, k=k, v=v)
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
-                         f"(bf16 or fp32)")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != dev or t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: {name} is {t.dtype} on "
-                             f"{t.device}, q is {q.dtype} on {dev}")
-    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash_attention: q, k, v must be 4-d")
-    B, Sq, H, D = q.shape
-    _, Sk, K, _ = k.shape
-    if k.shape != (B, Sk, K, D) or v.shape != k.shape or H % K:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if D % 4 or D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head_dim {D} must be a multiple "
-                         f"of 4 and at most {MAX_HEAD_DIM}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
-    if mask_type not in MASK_IDS:
-        raise ValueError(f"unknown mask_type {mask_type!r}")
     qo, qo_rows = _rows_arg("q_offset", q_offset, B, dev)
     kl, kl_rows = _rows_arg("kv_len", kv_len, B, dev)
     out = torch.empty_like(q)
@@ -182,3 +205,86 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_cuda.launches = 0
 #: the same calls by variant
 flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+# ---------------------------------------------------------------------------
+# The backward: ``csrc/flash_attention_bwd.cu``, its own library
+# ---------------------------------------------------------------------------
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    fn = lib.fa_backward
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.fa_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fa_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.fa_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.fa_bwd_scratch_floats.restype = ctypes.c_size_t
+
+
+BWD_LIBRARY = CudaLibrary("flash_attention_bwd", CSRC / "flash_attention_bwd.cu",
+                          _bind_bwd)
+#: the last backward build's {"seconds", "ptxas", "path"}
+bwd_build_info = BWD_LIBRARY.build_info
+bwd_library = BWD_LIBRARY.load
+
+
+def bwd_shared_memory_bytes(pass_: int, head_dim: int) -> int:
+    """Dynamic shared memory of one block of backward pass 1, 2 or 3."""
+    return int(bwd_library().fa_bwd_smem_bytes(pass_, head_dim))
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, *,
+                             q_offset: RowsArg, kv_len: RowsArg,
+                             mask_type: str, window: int, prefix_len: int,
+                             scale: float, softcap: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: (dq, dk, dv) of ``flash_attention_cuda``
+    at its output ``o`` and output gradient ``do`` (q-shaped), contiguous
+    CUDA tensors of q's dtype.  ``q_offset`` and ``kv_len`` must be ints
+    (training passes 0 and Sk); a per-row tensor raises, and so does a
+    configuration in which some query sees no key."""
+    B, Sq, Sk, H, K, D = _check_inputs("flash_attention_bwd_cuda", mask_type,
+                                       q=q, k=k, v=v, o=o, do=do)
+    for name, x in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if isinstance(x, torch.Tensor):
+            raise ValueError(f"flash_attention backward: {name} must be an "
+                             f"int (per-row tensors are the serve path's, "
+                             f"which has no backward)")
+    qo, kl = int(q_offset), min(int(kv_len), Sk)
+    # the first key the last query sees (local: its window's start)
+    last_first = max(0, qo + Sq - int(window)) if mask_type == "local" else 0
+    if qo < 0 or kl < 1 or last_first >= kl or (mask_type == "local" and window < 1):
+        raise ValueError(f"flash_attention backward: some query sees no key "
+                         f"(q_offset {qo}, kv_len {kl}, {mask_type} "
+                         f"window {window}): its gradient is undefined here")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dev = q.device
+    lib = bwd_library()
+    # lse, delta and the dk/dv partials of the query chunks (csrc's layout)
+    scratch = torch.empty(lib.fa_bwd_scratch_floats(B, Sq, Sk, H, K, D),
+                          dtype=torch.float32, device=dev)
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fa_backward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                             dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+                             B, Sq, Sk, H, K, D,
+                             MASK_IDS[mask_type], int(window), int(prefix_len),
+                             qo, kl, float(scale), float(softcap),
+                             int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+#: backward calls that launched the kernel (its passes and combine are one call)
+flash_attention_bwd_cuda.launches = 0

@@ -8,22 +8,45 @@ prefix mask, an explicit scale and softcap.  GQA is handled inside the
 kernel (kv head ``h // G``), so nothing is repeated here.
 
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
-to ``ref.attention_ref``; a CUDA tensor launches the kernel, or the call
-raises.  There is no fallback from one to the other.  The kernel's
-variant (tensor-core prefill, split-KV decode or the CUDA-core kernel) is
-chosen by ``kernel.plan`` from shapes and dtype.  A scalar ``q_offset`` /
-``kv_len`` reaches the kernel as an int, with no tensor made for it.
+to ``ref.attention_ref`` (autograd differentiates its plain ops); a CUDA
+tensor launches the kernel, or the call raises.  There is no fallback
+from one to the other.  The kernel's variant (tensor-core prefill,
+split-KV decode or the CUDA-core kernel) is chosen by ``kernel.plan``
+from shapes and dtype.  A scalar ``q_offset`` / ``kv_len`` reaches the
+kernel as an int, with no tensor made for it.  When a gradient is wanted
+(grad mode on and q, k or v requiring grad), the CUDA call goes through
+``FlashAttention``, an autograd Function whose forward is the same
+kernel launch and whose backward is the backward kernel
+(``kernel.flash_attention_bwd_cuda``); it saves q, k, v and the output.
 There is no tuning-DB lookup yet (``tuning/`` is ROADMAP Queue 1, slice
 7): the kernel's tiles are fixed in its source.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                        flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import IntOrRows, attention_ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw: Dict[str, Any]):
+        o = flash_attention_cuda(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,9 +73,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no path for device {q.device}")
-    scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    return flash_attention_cuda(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        q_offset=q_offset, kv_len=Sk if kv_len is None else kv_len,
-        mask_type=mask_type, window=window, prefix_len=prefix_len,
-        scale=scale, softcap=softcap)
+    kw = dict(q_offset=q_offset, kv_len=Sk if kv_len is None else kv_len,
+              mask_type=mask_type, window=window, prefix_len=prefix_len,
+              scale=softmax_scale if softmax_scale is not None else D ** -0.5,
+              softcap=softcap)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kw)
+    return flash_attention_cuda(q, k, v, **kw)

@@ -10,6 +10,9 @@ so a fully masked row gives a uniform softmax rather than NaN.
 
 ``ops.flash_attention`` takes this path for tensors on the CPU; on the
 card it is the version the CUDA kernel is held against.
+``attention_bwd_ref`` is the plain backward (FlashAttention-2's formulas),
+the version the backward kernel is held against; the CPU path
+differentiates ``attention_ref`` by autograd instead.
 """
 from __future__ import annotations
 
@@ -80,6 +83,55 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()[:, :, kv_head])
     return o.to(q.dtype)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      mask_type: str = "causal", window: int = 0,
+                      prefix_len: int = 0, q_offset: IntOrRows = 0,
+                      kv_len: Optional[IntOrRows] = None,
+                      softmax_scale: Optional[float] = None,
+                      softcap: float = 0.0):
+    """(dq, dk, dv) of ``attention_ref`` at output ``o`` and output
+    gradient ``do``, by the FlashAttention-2 formulas and not by autograd:
+    P = e^(s - lse), dv = sum_q P^T do, dP = do v^T, dS = P (dP - delta)
+    with delta = rowsum(do * o) (times 1 - tanh^2(s / cap) under a
+    softcap), dq = scale dS k, dk = scale sum_q dS^T q.  GQA sums dk and dv
+    over the G query heads of each kv head.  fp32 math, gradients in the
+    inputs' dtypes.  The backward kernel is held against it on the card."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    dev = q.device
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    kv_head = torch.arange(H, device=dev) // G
+    qf = q.float() * scale
+    kf, vf = k.float()[:, :, kv_head], v.float()[:, :, kv_head]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    q_pos = _rows(q_offset, dev)[:, None] + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    bias = torch.where(allowed_mask(q_pos, k_pos, mask_type, window, prefix_len),
+                       0.0, NEG_INF)
+    if kv_len is not None:
+        bias = bias + torch.where(k_pos < _rows(kv_len, dev)[:, None, None],
+                                  0.0, NEG_INF)
+    s = s + bias[:, None]
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]   # (B, H, Sq, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta)
+    if softcap > 0:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Sk, K, G, D).sum(3)
+    dv = dv.reshape(B, Sk, K, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ card; the kernel takes any S and D, so nothing is padded.
 
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.rglru_blocked``; a CUDA tensor launches the kernel, or the call
-raises.  There is no fallback from one to the other.  The reference's
+raises (also when a gradient is wanted: the kernel has no backward
+yet).  There is no fallback from one to the other.  The reference's
 ``block_t``/``block_d`` arguments and tuning-DB lookup have no
 counterpart: ``kernel.plan()`` picks the kernel's variant from shapes
 (``tuning/`` is ROADMAP Queue 1, slice 7).
@@ -38,6 +39,12 @@ def rglru(x: torch.Tensor, a: torch.Tensor,
     if x.device.type == "cpu":
         h = rglru_blocked(x, a, init_state)
     elif x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, a, init_state)):
+            raise NotImplementedError(
+                "rglru: the CUDA kernel has no backward yet, and its output "
+                "would carry no gradient (ROADMAP Queue 1: recurrentgemma "
+                "training on the card)")
         h = rglru_cuda(_rows(x), _rows(a),
                        None if init_state is None else init_state.float().contiguous())
     else:

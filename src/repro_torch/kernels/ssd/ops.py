@@ -9,7 +9,8 @@ ragged last chunk is masked inside the kernel, so nothing is padded.
 
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.ssd_ref``; a CUDA tensor launches the kernel (the variant
-``kernel.plan()`` names), or the call raises.
+``kernel.plan()`` names), or the call raises; it raises too when a
+gradient is wanted, since the kernel has no backward yet.
 There is no fallback from one to the other.  Both chunk by the kernel's 64
 steps (``ref.CHUNK``); the reference's ``chunk`` argument and tuning-DB
 lookup have no counterpart yet (``tuning/`` is ROADMAP Queue 1, slice 7).
@@ -39,6 +40,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         return ssd_ref(x, dt, A, Bm, Cm, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no path for device {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm, init_state)):
+        raise NotImplementedError(
+            "ssd: the CUDA kernel has no backward yet, and its output would "
+            "carry no gradient (ROADMAP Queue 1: mamba2 training on the card)")
     B, S, H, P = x.shape
     if x.stride(-1) != 1 or (x.stride(2) != P and H > 1):
         x = x.contiguous()

@@ -251,8 +251,12 @@ def gqa_attention(
     v = torch.einsum("bse,ekd->bskd", x, p["wv"].to(cdt))
 
     if positions is None:
+        # a fresh sequence from position 0 (the loss path): the offset is
+        # an int, which the attention backward kernel needs
         positions = torch.arange(S, device=x.device)
-    q_offset = positions[:, 0] if positions.ndim == 2 else positions[0]
+        q_offset = 0
+    else:
+        q_offset = positions[:, 0] if positions.ndim == 2 else positions[0]
 
     if cfg.rope_theta > 0:
         cos, sin = rope_freqs(positions, D, cfg.rope_theta)

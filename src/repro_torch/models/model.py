@@ -26,17 +26,33 @@ donates them):
 The hybrid family's attention layers are local: their KV cache is a ring
 of ``local_window`` slots once ``max_len`` exceeds the window.
 
+Training: ``loss(batch)`` is the reference's next-token NLL (fp32, from
+``logsumexp - gold``; chunked under ``cfg.opt_ce_chunk``), with each layer
+of its forward under ``cfg.remat`` (``"full"``: ``torch.utils.checkpoint``;
+``"dots"``: selective checkpointing that keeps the plain matrix products'
+outputs; ``"none"``).  A model built for inference holds frozen
+parameters (``requires_grad=False``), so serving builds no autograd graph;
+the train state holds a second model over a copy of the weights
+(``stacked_params``) whose parameters require grad.  ``param_index`` maps
+each parameter to its leaf and layer index in the reference's stacked
+tree, and ``leaf_views`` gives the matching views of any tree of that
+layout (the optimizer's moments).
+
 The dense family without a local window, the ssm family (mamba2) and the
 hybrid family (recurrentgemma) are ported; the others come with their
-slices (ROADMAP Queue 1).  ``loss`` and ``remat`` come with training.
+slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional
+from functools import partial
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -232,6 +248,33 @@ def _subtree(tree, path):
     return tree
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products without batch
+    dims (``checkpoint_dots_with_no_batch_dims``), recompute the rest.
+    ``einsum`` lowers a product such as "bse,ehd->bshd" to a ``bmm`` over
+    a batch of one, so that counts as a plain product too."""
+    if func in _MATMULS or (func is torch.ops.aten.bmm.default
+                            and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` run under the reference's remat policy ``mode``."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if mode == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _dots_policy))
+    raise ValueError(f"unknown remat {mode!r} (none | full | dots)")
+
+
 class Model(nn.Module):
     """The dense, ssm or hybrid model over a param tree in the reference's
     layout (the stacked leaves carry their layer axes)."""
@@ -281,13 +324,43 @@ class Model(nn.Module):
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
         return logits
 
-    def _run_layers(self, x, positions, cache, seq_lens=None):
+    def _run_layers(self, x, positions, cache, seq_lens=None, remat="none"):
         for blk, (path, idx, _) in zip(self.blocks, self._layout):
             # per-layer views of the stacked cache: the in-place writes of
             # the layer land in the stacked tensors
             ci = None if cache is None else _layer(_subtree(cache, path), idx)
-            x = blk(x, positions=positions, cache=ci, seq_lens=seq_lens)
+            x = _remat(blk, remat)(x, positions=positions, cache=ci, seq_lens=seq_lens)
         return x
+
+    # ---------------- parameters in the reference's layout ----------------
+
+    def param_index(self) -> List[Tuple[Tuple[str, ...], Tuple[int, ...]]]:
+        """(leaf path in the reference's param tree, index into its stacked
+        layer axes) of each parameter, in ``parameters()`` order."""
+        out = []
+        for name, _ in self.named_parameters():
+            parts = tuple(name.split("."))
+            if parts[0] == "blocks":
+                path, idx, _ = self._layout[int(parts[1])]
+                out.append((path + parts[2:], idx))
+            else:
+                out.append((parts, ()))
+        return out
+
+    def leaf_views(self, tree) -> List[torch.Tensor]:
+        """Views of ``tree`` (the reference's stacked layout, as the
+        optimizer's moments) matching ``parameters()`` one for one."""
+        return [_subtree(tree, path)[idx] for path, idx in self.param_index()]
+
+    def stacked_params(self) -> Dict[str, Any]:
+        """A copy of the weights as the reference's param tree (stacked
+        layer axes)."""
+        out = L.map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype, device=self.device),
+                         param_defs(self.cfg))
+        with torch.no_grad():
+            for view, p in zip(self.leaf_views(out), self.parameters()):
+                view.copy_(p)
+        return out
 
     # ---------------- public API ----------------
 
@@ -298,6 +371,46 @@ class Model(nn.Module):
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         return self._head(self._run_layers(x, positions, None))
+
+    def loss(self, batch: Mapping[str, torch.Tensor]):
+        """(loss, {"loss", "ppl"}): the mean next-token NLL in fp32 from
+        ``logsumexp - gold``, each layer under ``cfg.remat``.  Under
+        ``cfg.opt_ce_chunk`` the sequence is cut into chunks (padded, with
+        a valid mask) whose logits are formed one chunk at a time and
+        recomputed in the backward, so the full (B, S, V) fp32 logits never
+        exist."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(tokens)
+        # positions None: each attention layer counts from 0 with an int
+        # offset (the backward kernel takes no offset tensor)
+        hidden = self._run_layers(x, None, None, remat=cfg.remat)
+        targets = tokens[:, 1:].long()
+        if cfg.opt_ce_chunk > 0:
+            hid = hidden[:, :-1]
+            B, Sm1, _ = hid.shape
+            C = min(cfg.opt_ce_chunk, Sm1)
+            pad = (C - Sm1 % C) % C
+            hid = F.pad(hid, (0, 0, 0, pad))
+            tgt = F.pad(targets, (0, pad))
+            valid = F.pad(torch.ones(B, Sm1, device=x.device), (0, pad))
+            total = torch.zeros((), device=x.device)
+            for c0 in range(0, Sm1 + pad, C):
+                sl = slice(c0, c0 + C)
+                total = total + checkpoint(self._chunk_nll, hid[:, sl], tgt[:, sl],
+                                           valid[:, sl], use_reentrant=False)
+            loss = total / (B * Sm1)
+        else:
+            lg = self._head(hidden)[:, :-1].float()
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+            loss = (logz - gold).mean()
+        return loss, {"loss": loss, "ppl": torch.exp(loss)}
+
+    def _chunk_nll(self, h, t, valid):
+        lg = self._head(h).float()
+        gold = torch.gather(lg, -1, t[..., None])[..., 0]
+        return ((torch.logsumexp(lg, dim=-1) - gold) * valid).sum()
 
     def cache_defs(self, batch: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg

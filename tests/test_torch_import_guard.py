@@ -1,6 +1,7 @@
 """The port imports neither ``jax`` nor anything of ``repro``: in a fresh
-interpreter that refuses both, every module of ``repro_torch`` imports and
-a tiny prefill runs on the CPU."""
+interpreter that refuses both, every module of ``repro_torch`` imports
+(the training modules among them) and a tiny prefill and a tiny train
+step run on the CPU."""
 import os
 import subprocess
 import sys
@@ -28,6 +29,12 @@ model = built.model
 logits, cache = model.prefill({"tokens": torch.zeros(1, 4, dtype=torch.int32)},
                               model.init_cache(1, 8))
 assert logits.shape == (1, 1, built.cfg.vocab)
+assert {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
+        "repro_torch.launch.steps"} <= set(names)
+from repro_torch.core.suite import get_benchmark
+step, (state, batch), _ = get_benchmark("gemma-2b", "train").make(batch=1, seq=4, built=built)
+state, metrics = step(state, batch)
+assert torch.isfinite(metrics["loss"]) and int(state[1].step) == 1
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("modules", len(names))
 '''

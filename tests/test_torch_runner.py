@@ -41,7 +41,8 @@ def test_runner_cells_are_ok_with_reference_record_fields(runner, task):
 
 
 def test_unported_tasks_and_modes_come_back_as_error_records(runner):
-    for sc in (Scenario(arch="gemma-2b", task="train", batch=1, seq=8),
+    for sc in (Scenario(arch="gemma-2b", task="train", batch=1, seq=8,
+                        mode="jit_noremat"),
                Scenario(arch="gemma-2b", task="infer_decode", batch=1, seq=8,
                         mode="eager")):
         rr = runner.run(sc)
