@@ -26,10 +26,13 @@ cases time both its variants, and a sweep over shapes holds its plan
 against the faster one.  Training: the flash-attention backward kernel
 against its plain version (``attention_bwd_ref``) over gemma-2b's full
 width, the reduced config, every mask, softcap and K=2, with a bitwise
-repeat; two reduced gemma-2b train steps on the card against the CPU;
-then gemma-2b trained at full width (B=1, S=2048) through the suite's
-train step, whose every attention layer runs the forward kernel twice
-(once more under ``remat="full"``) and the backward kernel once.
+repeat (bf16 through its tensor-core variant, fp32 through its CUDA-core
+one: counted by variant; at gemma-2b's shape both variants are timed);
+two reduced gemma-2b train steps on the card against the CPU; then
+gemma-2b trained at full width (B=1, S=2048) through the suite's train
+step, whose every attention layer runs the forward kernel twice (once
+more under ``remat="full"``) and the backward kernel once, all through
+their tensor-core variants.
 One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -142,8 +145,11 @@ def phase_build():
                 dynamic_smem_bytes_tc_chunk_state=sk.shared_memory_bytes(64, 128, "chunk_state"),
                 dynamic_smem_bytes_tc_chunk_scan=sk.shared_memory_bytes(64, 128, "chunk_scan"))),
             ("flash_attention_bwd", fa_bwd, FA_BWD_SOURCE, {
-                f"dynamic_smem_bytes_pass{i}_d256": fa.bwd_shared_memory_bytes(i, 256)
-                for i in (1, 2, 3)}),
+                **{f"dynamic_smem_bytes_{name}_d256": fa.bwd_shared_memory_bytes(i, 256, "tc")
+                   for i, name in ((1, "fa_bwd_tc_lse"), (2, "fa_bwd_tc_dkv"),
+                                   (3, "fa_bwd_tc_dq"))},
+                **{f"dynamic_smem_bytes_simt_pass{i}_d256": fa.bwd_shared_memory_bytes(i, 256)
+                   for i in (1, 2, 3)}}),
             ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0))):
         ptxas = mod.build_info.get("ptxas", "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
@@ -340,17 +346,32 @@ def _device_ms_by(fn, names, iters=5):
     return out
 
 
+# the profiler keys of each backward variant's kernels
+FA_BWD_KERNELS = {"tc": ("fa_bwd_tc_lse", "fa_bwd_tc_dkv", "fa_bwd_dkv_combine", "fa_bwd_tc_dq"),
+                  "simt": ("fa_bwd_lse", "fa_bwd_dkv_kernel", "fa_bwd_dkv_combine", "fa_bwd_dq")}
+# the matrix products each of them runs, of 2 D FLOPs a visible pair and head: the
+# passes recompute S (lse, dk/dv, dq) and dP (dk/dv, dq), so 8 where the bound counts 5
+FA_BWD_PASS_PRODUCTS = (1, 4, 0, 3)
+
+
 def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", window=0,
                 prefix_len=0, softcap=0.0):
     """The backward kernel against ``attention_bwd_ref`` on the card, on
-    the forward kernel's own output: the worst error relative to each
-    gradient's largest |value|, and a second run that must be bitwise
-    equal.  Timed cases add device time (events; ``torch.profiler`` by
-    pass), TFLOP/s, the bound, the plain version, and the backward of
-    ``scaled_dot_product_attention`` alone as a yardstick (causal only)."""
+    the forward kernel's own output, through the variant ``plan_bwd``
+    picks: the worst error relative to each gradient's largest |value|,
+    and a second run that must be bitwise equal.  Timed cases add device
+    time (events; ``torch.profiler`` by kernel), TFLOP/s, the bound, the
+    plain version, and the backward of ``scaled_dot_product_attention``
+    alone as a yardstick (causal only); in bf16 also both variants in this
+    run (``launch_bwd``, uncounted), each output held against the plain
+    version and each timed, and the bytes of the ``tc`` dk/dv partials as
+    the plan sizes them (computed, not measured)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.kernel import (BWD_TILE, BWD_VARIANTS,
+                                                            bwd_chunk_tiles, bwd_dkv_blocks,
+                                                            flash_attention_bwd_cuda,
+                                                            launch_bwd, plan_bwd)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     dev = torch.device("cuda")
@@ -362,17 +383,22 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
     o = flash_attention(q, k, v, **kw)
     call = lambda: flash_attention_bwd_cuda(   # noqa: E731
         q, k, v, o, do, q_offset=0, kv_len=S, scale=D ** -0.5, **kw)
-    before = flash_attention_bwd_cuda.launches
+    variant = plan_bwd(B, S, S, H, K, D, tdt)
+    by_variant = flash_attention_bwd_cuda.launches_by_variant
+    before = (flash_attention_bwd_cuda.launches, by_variant[variant])
     got = call()
     torch.cuda.synchronize()
-    check(flash_attention_bwd_cuda.launches == before + 1, f"{name}: the backward did not launch")
+    check((flash_attention_bwd_cuda.launches, by_variant[variant]) == (before[0] + 1, before[1] + 1),
+          f"{name}: the backward's {variant} variant did not launch")
     again = call()
     torch.cuda.synchronize()
     want = attention_bwd_ref(q, k, v, o, do, **kw)
-    rel = {n: ((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
-           for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    rel_err = lambda out: {n: ((a.float() - w.float()).abs().max()   # noqa: E731
+                               / w.float().abs().max()).item()
+                           for n, a, w in zip(("dq", "dk", "dv"), out, want)}
+    rel = rel_err(got)
     res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, H=H, K=K, D=D), mask=mask_type,
-               window=window, prefix_len=prefix_len, softcap=softcap, rel_err=rel,
+               window=window, prefix_len=prefix_len, softcap=softcap, variant=variant, rel_err=rel,
                max_rel_err=max(rel.values()),
                max_abs_err=max((a.float() - w.float()).abs().max().item()
                                for a, w in zip(got, want)),
@@ -390,13 +416,33 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
         res["bound_ms"] = max(t_ops, t_bytes) * 1e3
         res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         res["ms"] = time_ms(call, iters=10, warmup=2)
-        dev_ms = _device_ms_by(call, ("fa_bwd_", "fa_bwd_lse", "fa_bwd_dkv_kernel",
-                                      "fa_bwd_dkv_combine", "fa_bwd_dq"))
+        dev_ms = _device_ms_by(call, ("fa_bwd_",) + FA_BWD_KERNELS[variant])
         res["device_ms"] = dev_ms["fa_bwd_"]
-        res["passes_device_ms"] = {"lse_delta": dev_ms["fa_bwd_lse"],
-                                   "dk_dv": dev_ms["fa_bwd_dkv_kernel"],
-                                   "dk_dv_combine": dev_ms["fa_bwd_dkv_combine"],
-                                   "dq": dev_ms["fa_bwd_dq"]}
+        res["passes_device_ms"] = {n: dev_ms[n] for n in FA_BWD_KERNELS[variant]}
+        # each pass's own products at the peak (computed, not measured)
+        res["passes_products_at_peak_ms"] = {
+            n: p * flops / 5 / PEAK_FLOPS[dtype] * 1e3
+            for n, p in zip(FA_BWD_KERNELS[variant], FA_BWD_PASS_PRODUCTS) if p}
+        if dtype == "bf16":   # both variants on the same inputs, in turns
+            args = dict(q_offset=0, kv_len=S, scale=D ** -0.5, **kw)
+            runs = {n: (lambda n=n: launch_bwd(q, k, v, o, do, n, **args)) for n in BWD_VARIANTS}
+            res["variants_max_rel_err"] = {n: max(rel_err(runs[n]()).values())
+                                           for n in BWD_VARIANTS}
+            check(all(e <= BWD_TOL[dtype] for e in res["variants_max_rel_err"].values()),
+                  f"{name}: a backward variant disagrees with its plain version: "
+                  f"{res['variants_max_rel_err']} (limit {BWD_TOL[dtype]})")
+            res["variants_ms"] = {n: [] for n in BWD_VARIANTS}
+            for _ in range(2):
+                for n in BWD_VARIANTS:
+                    res["variants_ms"][n].append(time_ms(runs[n], iters=10, warmup=2))
+            res["variants_device_ms"] = {n: device_ms(runs[n], "fa_bwd_", iters=5)
+                                         for n in BWD_VARIANTS}
+            chunk = bwd_chunk_tiles(B, S, S, H, K, mask_type, window, prefix_len, 0, S)
+            blocks = B * K * bwd_dkv_blocks(S, S, H // K, 0, S, mask_type, window, prefix_len,
+                                            chunk)
+            # dk and dv fp32 tiles of 64 keys a dk/dv block, written once and read once
+            res["partials_from_plan"] = dict(chunk_tiles=chunk, dkv_blocks=blocks,
+                                             bytes=2 * 4 * blocks * BWD_TILE * D)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         res["bound_share"] = res["bound_ms"] / res["ms"]
         res["plain_ms"] = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw), iters=3, warmup=1)
@@ -729,6 +775,7 @@ def phase_train_reference_check(steps=2, batch=2, seq=24):
             metrics.append({k: float(v) for k, v in m.items()})
         runs[name] = (metrics, _read_counts(), params_to_numpy(state[0]),
                       opt_state_to_numpy(state[1]))
+        bwd_variants = _read_bwd_variants()   # the card's run is the last
     (mc, _, pc, oc), (mg, counts, pg, og) = runs["cpu"], runs["cuda"]
     rel = lambda a, b: abs(a - b) / abs(b)   # noqa: E731
     leaf_err = lambda got, want: max(   # noqa: E731
@@ -741,10 +788,12 @@ def phase_train_reference_check(steps=2, batch=2, seq=24):
                params_max_abs_err=max(float(np.abs(g - w).max())
                                       for (_, g), (_, w) in zip(_leaves(pg), _leaves(pc))),
                mu_rel_err=leaf_err(og["mu"], oc["mu"]), nu_rel_err=leaf_err(og["nu"], oc["nu"]),
-               kernel_launches_cuda=counts)
+               kernel_launches_cuda=counts, bwd_launches_by_variant_cuda=bwd_variants)
     emit("train_reference_check", **res)
-    check(counts["flash_attention_bwd"] == steps * cfg.n_layers,
-          f"train reference check: backward launches {counts}")
+    # fp32 compute: the backward's CUDA-core variant
+    check(counts["flash_attention_bwd"] == steps * cfg.n_layers
+          and bwd_variants == {"tc": 0, "simt": steps * cfg.n_layers},
+          f"train reference check: backward launches {counts}, by variant {bwd_variants}")
     check(max(res["loss_rel_err"], res["grad_norm_rel_err"], res["params_max_abs_err"],
               res["mu_rel_err"], res["nu_rel_err"]) <= 1e-4,
           f"training on the card differs from the CPU: {res}")
@@ -764,9 +813,9 @@ def _profile_train_step(call):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    classes = (("flash_bwd_lse_delta", ("fa_bwd_lse",)),
-               ("flash_bwd_dk_dv", ("fa_bwd_dkv",)),   # the pass and its combine
-               ("flash_bwd_dq", ("fa_bwd_dq",)),
+    classes = (("flash_bwd_lse_delta", ("fa_bwd_lse", "fa_bwd_tc_lse")),
+               ("flash_bwd_dk_dv", ("fa_bwd_dkv", "fa_bwd_tc_dkv")),   # the pass and its combine
+               ("flash_bwd_dq", ("fa_bwd_dq", "fa_bwd_tc_dq")),
                ("flash_fwd", ("fa_tc_kernel", "fa_kernel<", "fa_split", "fa_decode_combine")),
                ("matmul_cublas", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
                ("adamw_foreach", ("multi_tensor_apply", "foreach")),
@@ -792,7 +841,7 @@ def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
     weights from seed 0.  The main path is one train step, with every
     launch count set to 0 just before it and read just after: 36 forward
     launches (18 layers, each recomputed once under ``remat="full"``), all
-    ``tc``, and 18 backward launches.  Then ``harness.measure`` (median of
+    ``tc``, and 18 backward launches, all ``tc``.  Then ``harness.measure`` (median of
     5 after a warmup), a profile of one step, four steps of a schedule
     with one warmup step on the same batch (the loss must fall), and the
     peak device memory."""
@@ -821,10 +870,11 @@ def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
     _reset_counts()                      # main path: one train step
     state, metrics = fn(*args)
     torch.cuda.synchronize()
-    counts, variants = _read_counts(), _read_variants()
+    counts, variants, bwd_variants = _read_counts(), _read_variants(), _read_bwd_variants()
     n = cfg.n_layers
     want = {"flash_attention": 2 * n, "flash_attention_bwd": n, "ssd": 0, "rglru": 0}
     want_variants = {"tc": 2 * n, "split": 0, "simt": 0}
+    want_bwd_variants = {"tc": n, "simt": 0}
     args = (state, args[1])
     final = []
     meas = harness.measure(f"{arch}/train/b{batch}/s{seq}/fp32/jit_donated", recorded, args,
@@ -851,6 +901,7 @@ def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
          tokens_per_s=batch * seq / (meas.median_us * 1e-6),
          kernel_launches_per_step=counts, expected_launches_per_step=want,
          flash_launches_by_variant=variants, expected_flash_launches_by_variant=want_variants,
+         bwd_launches_by_variant=bwd_variants, expected_bwd_launches_by_variant=want_bwd_variants,
          losses=[float(x) for x in losses], steps=len(losses), all_losses_finite=all_finite,
          params_changed=changed, repeated_batch_losses=repeated,
          max_memory_allocated=peak, limit=TRAIN_MEMORY_LIMIT,
@@ -858,12 +909,14 @@ def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
     check(counts == want, f"{arch} train: launches {counts} in one step, expected {want}")
     check(variants == want_variants,
           f"{arch} train: flash launches by variant {variants}, expected {want_variants}")
+    check(bwd_variants == want_bwd_variants, f"{arch} train: backward launches by variant "
+          f"{bwd_variants}, expected {want_bwd_variants}")
     check(all_finite and changed, f"{arch} train: losses {losses}, params changed {changed}")
     check(repeated[-1] < repeated[0], f"{arch} train: loss did not fall on one batch: {repeated}")
     check(peak < TRAIN_MEMORY_LIMIT, f"{arch} train: peak device memory {peak} bytes")
     del built, step, args, fn, model, state, fast
     _free_card()
-    return counts
+    return counts, bwd_variants
 
 
 def _counters():
@@ -880,7 +933,7 @@ def _counters():
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    for kernel in ("flash_attention", "ssd", "rglru"):
+    for kernel in ("flash_attention", "flash_attention_bwd", "ssd", "rglru"):
         by_variant = _counters()[kernel].launches_by_variant
         for name in by_variant:
             by_variant[name] = 0
@@ -893,6 +946,11 @@ def _read_counts():
 def _read_variants():
     """Flash-attention launches by variant (tc, split, simt)."""
     return dict(_counters()["flash_attention"].launches_by_variant)
+
+
+def _read_bwd_variants():
+    """Flash-attention backward launches by variant (tc, simt)."""
+    return dict(_counters()["flash_attention_bwd"].launches_by_variant)
 
 
 def _read_ssd_variants():
@@ -1130,7 +1188,8 @@ def phase_full_width(arch, per_forward):
 def _kernel_entry(name, source, replaces, launches, cases, main_case, dtype="bf16"):
     main = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
     keys = ("case", "dtype", "variant", "n_split", "heads_per_block", "chunk", "ms",
-            "device_ms", "passes_device_ms", "variants_device_ms", "stream_floor_device_ms",
+            "device_ms", "passes_device_ms", "variants_device_ms", "variants_ms",
+            "stream_floor_device_ms",
             "plain_ms", "bound_ms", "bound_by", "bound_share", "bound_share_device", "tflops",
             "gbytes_per_s", "tflops_device", "gbytes_per_s_device", "library_ms",
             "library_device_ms", "max_abs_err", "max_rel_err")
@@ -1171,7 +1230,7 @@ def main():
             ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
         (launches[arch], variants[arch], ssd_variants[arch],
          rglru_variants[arch]) = phase_full_width(arch, per_forward)
-    train_launches = phase_train_full()
+    train_launches, train_bwd_variants = phase_train_full()
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,
@@ -1194,6 +1253,10 @@ def main():
         dict(_kernel_entry("flash_attention_bwd", FA_BWD_SOURCE, FA_BWD_REPLACES,
                            train_launches["flash_attention_bwd"], bwd_cases, "gemma2b_train"),
              max_rel_err=max(c["max_rel_err"] for c in bwd_cases),
+             variants={"tc": "bf16, D in {32, 64, 128, 256}, H / K dividing 64: wgmma, TMA "
+                             "rings, two warpgroups exchanging P and dS through shared memory",
+                       "simt": "fp32 and other head dims, CUDA cores"},
+             launches_by_variant=train_bwd_variants,
              launches_per="gemma-2b full-width train step (B=1, S=2048)")],
         "gemma2b_train_flash_forward_launches_per_step": train_launches["flash_attention"],
         "recurrentgemma_flash_attention_launches":

@@ -23,15 +23,24 @@ No variant stands in for another that fails to build or launch.
 
 The backward, ``flash_attention_bwd_cuda``, is a kernel of its own
 (``csrc/flash_attention_bwd.cu``, C entry ``fa_backward``, its own
-library): three passes on the CUDA cores (lse and delta; dk and dv per
-key block and query chunk, then a fixed-order combine of the chunks; dq
-per row block), for scalar ``q_offset``/``kv_len`` only.
+library), for scalar ``q_offset``/``kv_len`` only: three passes (lse and
+delta; dk and dv per key block and query chunk, then a fixed-order
+combine of the chunks; dq per row block) in one of two variants, chosen
+by ``plan_bwd()`` from dtype, head_dim and group size:
+
+* ``tc``   — bf16 with D in {32, 64, 128, 256} and H / K dividing 64:
+             the passes on the tensor cores (wgmma, tiles streamed by TMA,
+             two warpgroups exchanging P and dS through shared memory);
+* ``simt`` — fp32 (held to 1e-4, which TF32 would miss) and other head
+             dims: the CUDA-core passes.
+
 It has no TPU counterpart: the reference trains through XLA attention.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from typing import Tuple, Union
 
@@ -212,14 +221,85 @@ flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 # ---------------------------------------------------------------------------
 
 
+BWD_VARIANTS = ("tc", "simt")
+BWD_VARIANT_IDS = {name: i for i, name in enumerate(BWD_VARIANTS)}
+BWD_TILE = 64      # packed rows and keys per tile of every tc pass
+
+
+def plan_bwd(B: int, Sq: int, Sk: int, H: int, K: int, D: int,
+             dtype: torch.dtype) -> str:
+    """The backward variant for one call: ``tc`` for bf16 with D in
+    ``TC_HEAD_DIMS`` and a group size G = H / K that divides 64 (a TMA box
+    of its packed rows holds 64 / G queries of G heads), ``simt``
+    otherwise.  B, Sq and Sk do not change the pick."""
+    tc = dtype == torch.bfloat16 and D in TC_HEAD_DIMS and BWD_TILE % (H // K) == 0
+    return "tc" if tc else "simt"
+
+
+def bwd_rows_seeing(k0: int, nk: int, Sq: int, G: int, q_offset: int, klim: int,
+                    mask_type: str, window: int, prefix_len: int) -> Tuple[int, int]:
+    """The packed rows [lo, hi) whose queries see any key of [k0, k0 + nk)
+    (the kernel's ``rows_seeing``)."""
+    qp_lo, qp_hi = q_offset, q_offset + Sq
+    k_last = min(k0 + nk, klim) - 1
+    if k_last < k0:
+        qp_hi = qp_lo
+    elif mask_type == "causal":
+        qp_lo = max(qp_lo, k0)
+    elif mask_type == "local":
+        qp_lo, qp_hi = max(qp_lo, k0), min(qp_hi, k_last + window)
+    elif mask_type == "prefix" and k0 >= prefix_len:
+        qp_lo = max(qp_lo, k0)
+    lo = (qp_lo - q_offset) * G
+    return lo, max(lo, (qp_hi - q_offset) * G)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_dkv_blocks(Sq: int, Sk: int, G: int, q_offset: int, klim: int, mask_type: str,
+                   window: int, prefix_len: int, chunk: int) -> int:
+    """Blocks of the ``tc`` backward's dk/dv pass that do work, for one
+    (row, kv head), with query chunks of ``chunk`` row tiles: per 64-key
+    block, the rows that see it cut into chunks, at least one (the
+    kernel's ``chunks_of``).  Each writes one (64 keys, D) pair of fp32
+    partials, packed, so this also sizes the scratch; the grid holds as
+    many chunks for every key block as the most any has, and the blocks
+    past a key block's last chunk return at once."""
+    T = BWD_TILE
+    return sum(max(1, -(-(hi - lo) // (chunk * T))) for lo, hi in (
+        bwd_rows_seeing(k0, min(T, Sk - k0), Sq, G, q_offset, klim, mask_type, window,
+                        prefix_len) for k0 in range(0, Sk, T)))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_chunk_tiles(B: int, Sq: int, Sk: int, H: int, K: int, mask_type: str,
+                    window: int, prefix_len: int, q_offset: int, kv_len: int) -> int:
+    """Row tiles (64 packed rows each) per query chunk of the ``tc``
+    backward's dk/dv pass: the fewest that keep its grid, one block per
+    (row, kv head, 64-key block, chunk), within two waves of 132 blocks
+    (one block fills an SM), so that no third wave of a few blocks
+    lengthens the pass.  gemma-2b's training call (B=1, S=2048, 8 heads
+    over 1, causal) gets 17: 264 blocks that do work."""
+    G, klim = H // K, min(kv_len, Sk)
+
+    def blocks(c: int) -> int:
+        return B * K * bwd_dkv_blocks(Sq, Sk, G, q_offset, klim, mask_type, window,
+                                      prefix_len, c)
+
+    lo, hi = 1, max(1, -(-Sq * G // BWD_TILE))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if blocks(mid) <= 2 * SMS else (mid + 1, hi)
+    return lo
+
+
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     fn = lib.fa_backward
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.fa_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fa_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.fa_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.fa_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.fa_bwd_scratch_floats.argtypes = [ctypes.c_int] * 8
     lib.fa_bwd_scratch_floats.restype = ctypes.c_size_t
 
 
@@ -230,9 +310,11 @@ bwd_build_info = BWD_LIBRARY.build_info
 bwd_library = BWD_LIBRARY.load
 
 
-def bwd_shared_memory_bytes(pass_: int, head_dim: int) -> int:
-    """Dynamic shared memory of one block of backward pass 1, 2 or 3."""
-    return int(bwd_library().fa_bwd_smem_bytes(pass_, head_dim))
+def bwd_shared_memory_bytes(pass_: int, head_dim: int, variant: str = "simt") -> int:
+    """Dynamic shared memory of one block of backward pass 1, 2 or 3 of
+    ``variant`` (0 where it has no instance at ``head_dim``)."""
+    return int(bwd_library().fa_bwd_smem_bytes(BWD_VARIANT_IDS[variant], pass_,
+                                                head_dim))
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -241,13 +323,40 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              mask_type: str, window: int, prefix_len: int,
                              scale: float, softcap: float
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel: (dq, dk, dv) of ``flash_attention_cuda``
-    at its output ``o`` and output gradient ``do`` (q-shaped), contiguous
-    CUDA tensors of q's dtype.  ``q_offset`` and ``kv_len`` must be ints
-    (training passes 0 and Sk); a per-row tensor raises, and so does a
-    configuration in which some query sees no key."""
-    B, Sq, Sk, H, K, D = _check_inputs("flash_attention_bwd_cuda", mask_type,
-                                       q=q, k=k, v=v, o=o, do=do)
+    """Launch the planned backward variant: (dq, dk, dv) of
+    ``flash_attention_cuda`` at its output ``o`` and output gradient
+    ``do`` (q-shaped), contiguous CUDA tensors of q's dtype.  ``q_offset``
+    and ``kv_len`` must be ints (training passes 0 and Sk); a per-row
+    tensor raises, and so does a configuration in which some query sees
+    no key."""
+    shape = _check_inputs("flash_attention_bwd_cuda", mask_type,
+                          q=q, k=k, v=v, o=o, do=do)
+    variant = plan_bwd(*shape, q.dtype)
+    out = _bwd(q, k, v, o, do, variant, shape, q_offset, kv_len, mask_type,
+               window, prefix_len, scale, softcap)
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_variant[variant] += 1
+    return out
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, do: torch.Tensor, variant: str, *,
+               q_offset: RowsArg, kv_len: RowsArg, mask_type: str, window: int,
+               prefix_len: int, scale: float, softcap: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's ``variant`` on these inputs, whatever ``plan_bwd``
+    would pick, without counting a launch (for timing both variants)."""
+    shape = _check_inputs("flash_attention_bwd_cuda", mask_type,
+                          q=q, k=k, v=v, o=o, do=do)
+    if variant not in BWD_VARIANT_IDS:
+        raise ValueError(f"unknown backward variant {variant!r} (known: {BWD_VARIANTS})")
+    return _bwd(q, k, v, o, do, variant, shape, q_offset, kv_len, mask_type,
+                window, prefix_len, scale, softcap)
+
+
+def _bwd(q, k, v, o, do, variant, shape, q_offset, kv_len, mask_type, window,
+         prefix_len, scale, softcap):
+    B, Sq, Sk, H, K, D = shape
     for name, x in (("q_offset", q_offset), ("kv_len", kv_len)):
         if isinstance(x, torch.Tensor):
             raise ValueError(f"flash_attention backward: {name} must be an "
@@ -265,8 +374,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     dev = q.device
     lib = bwd_library()
+    qchunk = items = 0
+    if variant == "tc":
+        qchunk = bwd_chunk_tiles(B, Sq, Sk, H, K, mask_type, int(window), int(prefix_len),
+                                 qo, kl)
+        items = bwd_dkv_blocks(Sq, Sk, H // K, qo, kl, mask_type, int(window),
+                               int(prefix_len), qchunk)
     # lse, delta and the dk/dv partials of the query chunks (csrc's layout)
-    scratch = torch.empty(lib.fa_bwd_scratch_floats(B, Sq, Sk, H, K, D),
+    scratch = torch.empty(lib.fa_bwd_scratch_floats(B, Sq, Sk, H, K, D,
+                                                    BWD_VARIANT_IDS[variant], items),
                           dtype=torch.float32, device=dev)
     switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
               else contextlib.nullcontext())
@@ -278,13 +394,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              B, Sq, Sk, H, K, D,
                              MASK_IDS[mask_type], int(window), int(prefix_len),
                              qo, kl, float(scale), float(softcap),
-                             int(q.dtype == torch.bfloat16), stream)
+                             int(q.dtype == torch.bfloat16),
+                             BWD_VARIANT_IDS[variant], qchunk, items, dev.index, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"CUDA error {rc}")
-    flash_attention_bwd_cuda.launches += 1
+        raise RuntimeError(f"flash_attention backward kernel ({variant}) launch "
+                           f"failed: CUDA error {rc}")
     return dq, dk, dv
 
 
 #: backward calls that launched the kernel (its passes and combine are one call)
 flash_attention_bwd_cuda.launches = 0
+#: the same calls by variant
+flash_attention_bwd_cuda.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)

@@ -21,6 +21,8 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import BWD_TILE, bwd_rows_seeing
+
 NEG_INF = -1e30
 
 MASKS = ("full", "causal", "local", "prefix")
@@ -209,3 +211,126 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     den = (w * torch.stack(ls)).sum(0).clamp(min=1e-30)  # (B, H, Sq)
     num = (w.permute(0, 1, 3, 2)[..., None] * torch.stack(accs)).sum(0)
     return (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core backward's algorithm (the ``tc`` variant of
+# ``csrc/flash_attention_bwd.cu``), in plain PyTorch: used by the tests,
+# never by the op.  Its tiles and the rows that see a key block are the
+# kernel plan's (``kernel.BWD_TILE``, ``kernel.bwd_rows_seeing``).
+# ---------------------------------------------------------------------------
+
+BWD_QCHUNK = 16    # row tiles per dk/dv block (one query chunk)
+
+
+def bwd_key_range(q_lo: int, q_hi: int, klim: int, mask_type: str, window: int,
+                   prefix_len: int):
+    """The keys [beg, end) queries q_lo..q_hi see, beg rounded down to a
+    tile (the kernel's ``key_range``)."""
+    end = klim
+    if mask_type in ("causal", "local"):
+        end = min(end, q_hi + 1)
+    elif mask_type == "prefix":
+        end = min(end, max(q_hi + 1, prefix_len))
+    beg = max(0, q_lo - window + 1) // BWD_TILE * BWD_TILE if mask_type == "local" else 0
+    return beg, end
+
+
+def attention_bwd_tiles_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, *,
+                            mask_type: str = "causal", window: int = 0,
+                            prefix_len: int = 0, q_offset: int = 0,
+                            kv_len: Optional[int] = None,
+                            softmax_scale: Optional[float] = None,
+                            softcap: float = 0.0, bf16_products: bool = False,
+                            qchunk: int = BWD_QCHUNK):
+    """``attention_bwd_ref`` computed as the ``tc`` backward does, on
+    packed rows p = qi G + (h % G) of each (row, kv head):
+
+    1. lse by an online max and sum over the 64-key tiles each 64-row
+       tile sees, and delta = rowsum(do o);
+    2. per 64-key block, in the transposed orientation: the rows that see
+       the block cut into chunks of ``qchunk`` 64-row tiles; per tile
+       S^T = K Q^T, P^T = e^(S^T - lse), dP^T = V dO^T,
+       dS^T = P^T (1 - tanh^2) (dP^T - delta); dV += P^T dO and
+       dK += dS^T Q per chunk (dk times scale), then the chunks summed in
+       order;
+    3. per 64-row tile over its visible 64-key tiles: dQ += dS K, times
+       scale.
+
+    fp32 math.  ``bf16_products`` rounds P and dS to bf16 where the kernel
+    does (the A operands of the dV, dK and dQ products).  Scalar
+    ``q_offset`` and ``kv_len`` only; every query must see a key."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, R, T = H // K, Sq * (H // K), BWD_TILE
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    klim = Sk if kv_len is None else min(int(kv_len), Sk)
+    dev = q.device
+
+    def packed(x):   # (B, Sq, H, D) -> (B, K, R, D)
+        return x.float().reshape(B, Sq, K, G, D).permute(0, 2, 1, 3, 4).reshape(B, K, R, D)
+
+    Q, dO = packed(q), packed(do)
+    Kf, Vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    qpos = q_offset + torch.arange(R, device=dev) // G
+    kpos = torch.arange(Sk, device=dev)
+    vis = allowed_mask(qpos, kpos, mask_type, window, prefix_len) & (kpos < klim)
+    rnd = (lambda x: x.bfloat16().float()) if bf16_products else (lambda x: x)   # noqa: E731
+
+    def scores(a, b):   # (logits, 1 - tanh^2 or None)
+        s = torch.einsum("bkrd,bkcd->bkrc", a, b) * scale
+        if softcap > 0:
+            t = torch.tanh(s / softcap)
+            return t * softcap, 1.0 - t * t
+        return s, None
+
+    delta = (dO * packed(o)).sum(-1)                       # (B, K, R)
+    lse = torch.empty(B, K, R, device=dev)
+    dq = torch.zeros(B, K, R, D, device=dev)
+    for p0 in range(0, R, T):
+        rows = slice(p0, min(p0 + T, R))
+        q_lo, q_hi = int(qpos[rows][0]), int(qpos[rows][-1])
+        beg, end = bwd_key_range(q_lo, q_hi, klim, mask_type, window, prefix_len)
+        m = torch.full((B, K, rows.stop - p0), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        for k0 in range(beg, end, T):                       # pass 1: online lse
+            keys = slice(k0, min(k0 + T, Sk))
+            s, _ = scores(Q[:, :, rows], Kf[:, :, keys])
+            s = torch.where(vis[rows, keys], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+            m = m_new
+        lse[:, :, rows] = m + torch.log(l)
+        for k0 in range(beg, end, T):                       # pass 3: dq
+            keys = slice(k0, min(k0 + T, Sk))
+            s, dt = scores(Q[:, :, rows], Kf[:, :, keys])
+            p = torch.where(vis[rows, keys], torch.exp(s - lse[:, :, rows, None]), 0.0)
+            dp = torch.einsum("bkrd,bkcd->bkrc", dO[:, :, rows], Vf[:, :, keys])
+            ds = (p if dt is None else p * dt) * (dp - delta[:, :, rows, None])
+            dq[:, :, rows] += rnd(ds) @ Kf[:, :, keys]
+    dk, dv = torch.zeros_like(Kf), torch.zeros_like(Vf)
+    for k0 in range(0, Sk, T):                              # pass 2: dk, dv
+        keys = slice(k0, min(k0 + T, Sk))
+        lo, hi = bwd_rows_seeing(k0, keys.stop - k0, Sq, G, q_offset, klim, mask_type,
+                                  window, prefix_len)
+        parts = []
+        for c_lo in range(lo, hi, qchunk * T):
+            c_hi = min(hi, c_lo + qchunk * T)
+            pk = torch.zeros_like(Kf[:, :, keys])
+            pv = torch.zeros_like(pk)
+            for p0 in range(c_lo, c_hi, T):
+                rows = slice(p0, min(p0 + T, c_hi))
+                st, dt = scores(Kf[:, :, keys], Q[:, :, rows])
+                pt = torch.where(vis[rows, keys].T, torch.exp(st - lse[:, :, None, rows]), 0.0)
+                dpt = torch.einsum("bkcd,bkrd->bkcr", Vf[:, :, keys], dO[:, :, rows])
+                dst = (pt if dt is None else pt * dt) * (dpt - delta[:, :, None, rows])
+                pv += rnd(pt) @ dO[:, :, rows]
+                pk += rnd(dst) @ Q[:, :, rows]
+            parts.append((pk * scale, pv))
+        for pk, pv in parts:                                # the combine, in chunk order
+            dk[:, :, keys] += pk
+            dv[:, :, keys] += pv
+    dq = (dq * scale).reshape(B, K, Sq, G, D).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
