@@ -7,11 +7,14 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
 ``nvcc`` per source, all started together), holds each against its plain
-PyTorch version on the card, runs the runner's reduced gemma-2b,
-mamba2-2.7b and recurrentgemma-9b cells, checks the card against the CPU
-on small inputs, then serves and steps the three models at their full
-published widths through the user entry points, one model on the card at
-a time.  Each model's main path runs with every kernel's launch count set
+PyTorch version on the card, runs the runner's reduced cells of every
+ported arch, checks the card against the CPU on small inputs, then serves
+and steps gemma-2b, mamba2-2.7b, recurrentgemma-9b, gemma3-12b,
+nemotron-4-15b, paligemma-3b and whisper-large-v3 at their full published
+widths and depths through the user entry points, and internlm2-20b at
+full width with 24 of its 48 layers (its 48 layers' fp32 weights, 79.4 GB,
+would fill the card) through ``serve.built_for_cfg`` and ``ServeEngine``,
+one model on the card at a time.  Each model's main path runs with every kernel's launch count set
 to 0 just before it and read just after: every attention call goes
 through the flash-attention kernel (full-width prefill through its
 tensor-core variant, decode through its split-KV variant: counted by
@@ -43,6 +46,7 @@ are full fp32 on the card.
 """
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -70,6 +74,11 @@ RGLRU_TOL = 2e-5                               # as tests/test_kernels.py (fp32)
 RGLRU_SOURCE = "src/repro_torch/csrc/rglru.cu"
 RGLRU_REPLACES = "src/repro/kernels/rglru/kernel.py:70"
 MEMORY_LIMIT = 50e9                            # bytes: one full model at a time
+# the models of the dense-variant, vlm and encdec slice: each one's limit is
+# its fp32 parameter bytes (reckoned from its ParamDefs, in the phase) plus
+# this headroom: gemma3-12b 47.06 GB, nemotron-4-15b 62.51 GB, internlm2-20b
+# at 24 layers 42.0 GB, paligemma-3b 10.03 GB, whisper-large-v3 6.31 GB
+MEMORY_HEADROOM = 8e9
 FA_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 FA_BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its XLA attention "
                    "(src/repro/models/layers.py:154) by autodiff")
@@ -222,7 +231,10 @@ def device_ms(fn, name="", iters=20):
 
 
 def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal",
-                window=0, prefix_len=0, q_offset=0, kv_len=None, softcap=0.0):
+                window=0, prefix_len=0, q_offset=0, kv_len=None, softcap=0.0, expect=None):
+    """The flash-attention kernel against ``attention_ref`` on one case
+    (``expect``: the variant ``plan()`` must pick); timed cases add the
+    bound, the plain version's time and SDPA's as a yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, plan
@@ -239,6 +251,7 @@ def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal"
     kw = dict(mask_type=mask_type, window=window, prefix_len=prefix_len,
               q_offset=q_offset, kv_len=kv_len, softcap=softcap)
     variant, n_split = plan(B, Sq, Sk, H, K, D, tdt)
+    check(expect in (None, variant), f"{name}: plan() picks {variant}, expected {expect}")
     before = flash_attention_cuda.launches_by_variant[variant]
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -322,6 +335,27 @@ def phase_kernels():
     # the tensor-core variant at the smaller head dims it instantiates
     for D in (64, 128):
         cases.append(kernel_case(f"tc_d{D}", "bf16", 2, 2048, 2048, 16, 2, D, timed=True))
+    # the regimes of gemma3-12b (16 query heads over 8 kv heads of 256, a
+    # 1024-key local window; decode over the 1024-slot ring, ``full`` mask,
+    # kv_len = min(position + 1, 1024)), paligemma-3b (256 patch positions
+    # + 128 tokens under the prefix mask, MQA over 8 heads) and
+    # whisper-large-v3 (20 heads of 64: the 1500-frame encoder, not a
+    # multiple of the 64-key tile; cross attention over its 1500 keys)
+    bf16 = dict(dtype="bf16", timed=True)
+    cases.append(kernel_case("gemma3_local_prefill", B=1, Sq=2048, Sk=2048, H=16, K=8, D=256,
+                             mask_type="local", window=1024, expect="tc", **bf16))
+    cases.append(kernel_case("gemma3_ring_decode", B=4, Sq=1, Sk=1024, H=16, K=8, D=256,
+                             mask_type="full", q_offset=rows(2048, 3000, 100, 1023),
+                             kv_len=rows(1024, 1024, 101, 1024), expect="split", **bf16))
+    cases.append(kernel_case("paligemma_prefix_prefill", B=2, Sq=384, Sk=384, H=8, K=1, D=256,
+                             mask_type="prefix", prefix_len=256, expect="tc", **bf16))
+    cases.append(kernel_case("whisper_encoder", B=1, Sq=1500, Sk=1500, H=20, K=20, D=64,
+                             mask_type="full", expect="tc", **bf16))
+    cases.append(kernel_case("whisper_cross_prefill", B=4, Sq=128, Sk=1500, H=20, K=20, D=64,
+                             mask_type="full", expect="tc", **bf16))
+    cases.append(kernel_case("whisper_cross_decode", B=4, Sq=1, Sk=1500, H=20, K=20, D=64,
+                             mask_type="full", q_offset=rows(128, 131, 140, 143),
+                             expect="split", **bf16))
     return cases
 
 
@@ -698,13 +732,17 @@ def phase_rglru_plan_sweep():
     emit("rglru_plan_sweep_summary", shapes=len(shapes), plan_picked_faster=picked_faster)
 
 
+DENSE_ARCHS = ("gemma-2b", "gemma3-12b", "nemotron-4-15b", "internlm2-20b")
+
+
 def phase_runner():
     from repro_torch.runner import BenchmarkRunner, Scenario
     runner = BenchmarkRunner(device="cuda")
-    for arch in ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b"):
+    for arch in ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b", "gemma3-12b",
+                 "nemotron-4-15b", "internlm2-20b", "paligemma-3b", "whisper-large-v3"):
         # training on the card: the dense family (the SSD and RG-LRU
-        # kernels have no backward yet)
-        train = (("train", {}),) if arch == "gemma-2b" else ()
+        # kernels have no backward yet; the vlm and encdec families no loss)
+        train = (("train", {}),) if arch in DENSE_ARCHS else ()
         for task, kw in train + (("infer_prefill", {}), ("infer_decode", {}),
                                  ("serve", dict(batch=8, seq=32))):
             sc = Scenario(arch=arch, task=task, **kw)
@@ -715,11 +753,27 @@ def phase_runner():
             check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
 
 
+def _stub_inputs(cfg, batch):
+    """The vlm family's ``patch_embeds`` and the encdec family's
+    ``frames`` for ``batch`` rows, from numpy seed 2 (as the suite draws
+    them), on the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2)
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal((batch, cfg.enc_seq, cfg.d_model)) * 0.1
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal((batch, cfg.n_prefix, cfg.d_model)) * 0.02
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in out.items()}
+
+
 def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
     """The kernel path against the plain path on a small input: the same
     reduced weights (fp32 compute) on the card and on the CPU give logits
     within 1e-4 and equal greedy serve tokens (bimodal prompts of
-    ``prompt_len`` / 2 and 2 x ``prompt_len`` tokens)."""
+    ``prompt_len`` / 2 and 2 x ``prompt_len`` tokens).  The vlm family's
+    cache holds its patch prefix besides ``max_len``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -730,20 +784,23 @@ def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
     cfg = get_arch(arch).reduced(compute_dtype=torch.float32)
     cpu = build_model(cfg, device="cpu", seed=0)
     gpu = copy.deepcopy(cpu).to("cuda")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, seq)).astype(np.int32))
-    lc, _ = cpu.prefill({"tokens": toks}, cpu.init_cache(2, max_len))
-    lg, _ = gpu.prefill({"tokens": toks.cuda()}, gpu.init_cache(2, max_len))
+    prefix = cfg.n_prefix if cfg.family == "vlm" else 0
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, seq)).astype(np.int32)), **_stub_inputs(cfg, 2)}
+    lc, _ = cpu.prefill(batch, cpu.init_cache(2, max_len + prefix))
+    lg, _ = gpu.prefill({k: v.cuda() for k, v in batch.items()},
+                        gpu.init_cache(2, max_len + prefix))
     err = (lg.cpu() - lc).abs().max().item()
     reqs = generate(TraceSpec(profile="bursty", requests=8, prompt_len=prompt_len,
                               max_new=8, prompt_profile="bimodal"), vocab=cfg.vocab)
+    serve_max_len = cache_len_bound(reqs, prefix=prefix)
     digests = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
-        eng = ServeEngine(Built(cfg, model), slots=4, max_len=cache_len_bound(reqs))
+        eng = ServeEngine(Built(cfg, model), slots=4, max_len=serve_max_len)
         digests[name] = summarize_metrics(eng.run(reqs))["tokens_digest"]
-    emit("reference_check", arch=arch, prompt=seq, max_len=max_len,
+    emit("reference_check", arch=arch, prompt=seq, max_len=max_len + prefix,
          serve_prompt_lens=sorted({len(r.prompt) for r in reqs}),
-         serve_max_len=cache_len_bound(reqs), local_window=cfg.local_window,
+         serve_max_len=serve_max_len, local_window=cfg.local_window,
          logits_max_abs_err=err, tol=1e-4,
          digest_cpu=digests["cpu"], digest_cuda=digests["cuda"])
     check(err <= 1e-4, f"{arch}: card vs CPU logits differ by {err}")
@@ -799,6 +856,30 @@ def phase_train_reference_check(steps=2, batch=2, seq=24):
           f"training on the card differs from the CPU: {res}")
 
 
+# kernel classes of a profile, by substrings of the kernels' names (the
+# first class that matches takes the kernel)
+FORWARD_CLASSES = (("flash_fwd", ("fa_tc_kernel", "fa_kernel<", "fa_split", "fa_decode_combine")),
+                   ("ssd", ("ssd_",)), ("rglru", ("rglru_",)),
+                   ("matmul_cublas", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
+                   ("casts_copies", ("copy", "Copy")))
+TRAIN_CLASSES = (("flash_bwd_lse_delta", ("fa_bwd_lse", "fa_bwd_tc_lse")),
+                 ("flash_bwd_dk_dv", ("fa_bwd_dkv", "fa_bwd_tc_dkv")),   # the pass and its combine
+                 ("flash_bwd_dq", ("fa_bwd_dq", "fa_bwd_tc_dq")),
+                 FORWARD_CLASSES[0], FORWARD_CLASSES[3],
+                 ("adamw_foreach", ("multi_tensor_apply", "foreach")),
+                 FORWARD_CLASSES[4])
+
+
+def _device_ms_by_class(kernels, classes, per=1):
+    """Device ms of profiled ``kernels`` by class (``classes``; the rest
+    is "other"), divided by ``per``."""
+    by_class = dict.fromkeys([c for c, _ in classes] + ["other"], 0.0)
+    for e in kernels:
+        name = next((c for c, keys in classes if any(key in e.key for key in keys)), "other")
+        by_class[name] += e.self_device_time_total / 1e3 / per
+    return by_class
+
+
 def _profile_train_step(call):
     """Device time of one train step by kernel class (``torch.profiler``):
     flash forward and backward (by pass), cuBLAS matmuls, the AdamW
@@ -813,17 +894,7 @@ def _profile_train_step(call):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    classes = (("flash_bwd_lse_delta", ("fa_bwd_lse", "fa_bwd_tc_lse")),
-               ("flash_bwd_dk_dv", ("fa_bwd_dkv", "fa_bwd_tc_dkv")),   # the pass and its combine
-               ("flash_bwd_dq", ("fa_bwd_dq", "fa_bwd_tc_dq")),
-               ("flash_fwd", ("fa_tc_kernel", "fa_kernel<", "fa_split", "fa_decode_combine")),
-               ("matmul_cublas", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
-               ("adamw_foreach", ("multi_tensor_apply", "foreach")),
-               ("casts_copies", ("copy", "Copy")))
-    by_class = dict.fromkeys([c for c, _ in classes] + ["other"], 0.0)
-    for e in kernels:
-        name = next((c for c, keys in classes if any(key in e.key for key in keys)), "other")
-        by_class[name] += e.self_device_time_total / 1e3
+    by_class = _device_ms_by_class(kernels, TRAIN_CLASSES)
     dev_ms = sum(by_class.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     emit("profile_train_step_full", wall_ms_profiled=wall_ms,
@@ -965,17 +1036,20 @@ def _read_rglru_variants():
 
 def phase_profile(arch, model, steps=5):
     """Where a full-width decode step's time goes, at the serve run's
-    shape (4 slots, positions ~130 of a 144-token cache): wall per step
-    without the profiler, device time per step and its top kernels from
-    ``torch.profiler`` (device busy share = device time / wall)."""
+    shape (4 slots, positions ~130 of a 144-token cache, past the vlm
+    family's patch prefix): wall per step without the profiler, device
+    time per step and its top kernels from ``torch.profiler`` (device busy
+    share = device time / wall)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cache = model.init_cache(4, 144)
+    cfg = model.cfg
+    cache = model.init_cache(4, 144 + (cfg.n_prefix if cfg.family == "vlm" else 0))
     g = torch.Generator().manual_seed(0)
-    toks = torch.randint(0, model.cfg.vocab, (4, 128), generator=g,
+    toks = torch.randint(0, cfg.vocab, (4, 128), generator=g,
                          dtype=torch.int32).cuda()
-    model.prefill({"tokens": toks}, cache)
+    stubs = {k: v.cuda() for k, v in _stub_inputs(cfg, 4).items()}
+    model.prefill({"tokens": toks, **stubs}, cache)
     one = toks[:, :1].contiguous()
 
     def decode_steps():
@@ -996,6 +1070,7 @@ def phase_profile(arch, model, steps=5):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit("profile_decode_full", arch=arch, steps=steps, wall_ms_per_step=wall_ms,
          device_ms_per_step=dev_us / 1e3 if dev_us else "not measured",
+         device_ms_per_step_by_class=_device_ms_by_class(kernels, FORWARD_CLASSES, steps),
          device_busy_share=dev_us / 1e3 / wall_ms if dev_us else "not measured",
          device_kernel_calls_per_step=sum(e.count for e in kernels) / steps,
          top_kernels=[dict(name=e.key[:80], calls_per_step=e.count / steps,
@@ -1034,6 +1109,7 @@ def _profile_step(arch, task, call):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit("profile_step_full", arch=arch, task=task, wall_ms_profiled=wall_ms,
          device_ms=dev_ms if dev_ms else "not measured",
+         device_ms_by_class=_device_ms_by_class(kernels, FORWARD_CLASSES),
          device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
          port_kernels_ms={k: v for k, v in ours.items() if v},
          port_kernels_share={k: v / dev_ms for k, v in ours.items() if v and dev_ms},
@@ -1059,43 +1135,89 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-def phase_full_width(arch, per_forward):
-    """``arch`` at its full published config, random weights from seed 0:
-    its main path (the serve CLI) with every launch count set to 0 just
-    before it and read just after, then a decode-step profile, the
-    ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at 2048 steps, and
-    the peak device memory.  ``per_forward`` maps each kernel of the path
-    to its launches (per prefill forward, per decode step); every other
-    kernel must not launch.  Returns the serve run's launch counts and its
-    flash-attention, SSD and RG-LRU launches by variant."""
+SERVE_ARGV = ["--requests", "8", "--slots", "4", "--prompt-len", "128", "--max-new", "16"]
+
+
+def _serve_cli(arch):
+    """The serve CLI at ``arch``'s full config (its main path):
+    (requests, tokens, decode steps, admission calls, tok/s, TTFT p50 us,
+    per-token p50 us, argv)."""
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--full"] + SERVE_ARGV
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    m = re.search(r"served (\d+) requests .*?: (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, "
+                  r"(\d+) steps, \w+ admission: (\d+) prefill calls\)", text)
+    check(rc == 0 and m, f"{arch}: serve CLI failed: {text}")
+    return (*(int(m.group(i)) for i in (1, 2, 5, 6)), float(m.group(4)),
+            float(re.search(r"ttft_us\s+p50=(\d+)", text).group(1)),
+            float(re.search(r"tok_lat_us\s+p50=(\d+)", text).group(1)), argv)
+
+
+def _serve_engine(cfg):
+    """The CLI's run through ``serve.built_for_cfg`` and ``ServeEngine``
+    for a config the CLI cannot name (a cut depth): the same trace, slots
+    and cache bound; returns what ``_serve_cli`` does."""
+    from repro_torch.launch import serve
+    from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
+    built = serve.built_for_cfg(cfg)
+    reqs = generate(TraceSpec(profile="uniform", requests=8, prompt_len=128, max_new=16,
+                              seed=0, prompt_profile="fixed"), vocab=cfg.vocab)
+    prefix = cfg.n_prefix if cfg.family == "vlm" else 0
+    engine = serve.ServeEngine(built, slots=4, max_len=cache_len_bound(reqs, prefix=prefix))
+    out = engine.run(reqs)
+    m = serve.summarize_metrics(out)
+    del built, engine
+    return (out["requests"], out["tokens"], out["decode_steps"], out["admit_calls"],
+            m["tok_per_s"], m.get("ttft_p50", 0.0), m.get("tok_lat_p50", 0.0),
+            f"serve.ServeEngine(serve.built_for_cfg(n_layers={cfg.n_layers})), "
+            + " ".join(SERVE_ARGV))
+
+
+def _param_bytes(cfg):
+    """The fp32 parameter bytes of ``cfg``, reckoned from its ParamDefs."""
+    import math
+    import torch
+    from repro_torch.models.layers import map_defs
+    from repro_torch.models.model import param_defs
+    sizes = []
+    map_defs(lambda d: sizes.append(math.prod(d.shape) * torch.empty((), dtype=d.dtype)
+                                    .element_size()), param_defs(cfg))
+    return sum(sizes)
+
+
+def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT):
+    """``arch`` at its full published config (or at ``cfg``, a cut of it),
+    random weights from seed 0: its main path (the serve CLI; for a cut
+    config the same run through ``ServeEngine``) with every launch count
+    set to 0 just before it and read just after, then a decode-step
+    profile, the ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at
+    2048 steps, and the peak device memory (under ``memory_limit``).
+    ``per_forward`` maps each kernel of the path to its launches (per
+    prefill forward, per decode step); every other kernel must not launch.
+    Returns the serve run's launch counts and its flash-attention, SSD and
+    RG-LRU launches by variant."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
     from repro_torch.core.suite import get_benchmark
     from repro_torch.kernels.rglru.kernel import plan as rglru_plan
     from repro_torch.launch import serve
-    cfg = get_arch(arch)
+    cut = cfg is not None
+    cfg = cfg if cut else get_arch(arch)
     left = _free_card()
     check(left < 1e9, f"{arch}: {left} bytes still allocated before the phase")
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", arch, "--full", "--requests", "8", "--slots", "4",
-            "--prompt-len", "128", "--max-new", "16"]
-    buf = io.StringIO()
-    _reset_counts()                      # main path: serve through the CLI
-    with contextlib.redirect_stdout(buf):
-        rc = serve.main(argv)
+    _reset_counts()                      # main path: the serve run
+    (served, tokens, steps, admits, tok_per_s, ttft_p50, tok_p50,
+     argv) = _serve_engine(cfg) if cut else _serve_cli(arch)
     counts = _read_counts()
     variants = _read_variants()
     ssd_variants = _read_ssd_variants()
     rglru_variants = _read_rglru_variants()
-    text = buf.getvalue()
-    print(text, end="", flush=True)
-    m = re.search(r"served (\d+) requests .*?: (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, "
-                  r"(\d+) steps, \w+ admission: (\d+) prefill calls\)", text)
-    check(rc == 0 and m, f"{arch}: serve CLI failed: {text}")
-    served, tokens, steps, admits = (int(m.group(i)) for i in (1, 2, 5, 6))
-    ttft_p50 = float(re.search(r"ttft_us\s+p50=(\d+)", text).group(1))
-    tok_p50 = float(re.search(r"tok_lat_us\s+p50=(\d+)", text).group(1))
     rate = {k: per_forward.get(k, (0, 0)) for k in counts}
     expected = {k: pre * admits + dec * steps for k, (pre, dec) in rate.items()}
     # full-width prefill (admission) runs only the tensor-core variant,
@@ -1108,8 +1230,8 @@ def phase_full_width(arch, per_forward):
     # prompts: plan() picks per shape, so each variant runs whole forwards
     rg_pre = rate["rglru"][0]
     rglru_whole = all(n % rg_pre == 0 for n in rglru_variants.values()) if rg_pre else True
-    emit("serve_full", arch=arch, argv=argv, requests=served, tokens=tokens,
-         tok_per_s=float(m.group(4)), ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
+    emit("serve_full", arch=arch, n_layers=cfg.n_layers, argv=argv, requests=served,
+         tokens=tokens, tok_per_s=tok_per_s, ttft_p50_us=ttft_p50, tok_lat_p50_us=tok_p50,
          decode_steps=steps, admit_calls=admits, kernel_launches=counts,
          expected_launches=expected, flash_launches_by_variant=variants,
          expected_flash_launches_by_variant=expected_variants,
@@ -1177,9 +1299,10 @@ def phase_full_width(arch, per_forward):
             _profile_step(arch, task, lambda: fn(*args))
         del step, args, out, fn
     peak = torch.cuda.max_memory_allocated()
-    emit("memory", arch=arch, max_memory_allocated=peak, limit=MEMORY_LIMIT,
+    emit("memory", arch=arch, n_layers=cfg.n_layers, max_memory_allocated=peak,
+         limit=memory_limit,
          param_bytes=sum(p.numel() * p.element_size() for p in built.model.parameters()))
-    check(peak < MEMORY_LIMIT, f"{arch}: peak device memory {peak} bytes")
+    check(peak < memory_limit, f"{arch}: peak device memory {peak} bytes")
     del built
     _free_card()
     return counts, variants, ssd_variants, rglru_variants
@@ -1221,6 +1344,10 @@ def main():
     phase_reference_check("mamba2-2.7b")
     # a prompt past the reduced window (64): the ring and its gather
     phase_reference_check("recurrentgemma-9b", seq=88, max_len=100, prompt_len=40)
+    # gemma3: past the reduced window (64) too, so its local layers' rings wrap
+    phase_reference_check("gemma3-12b", seq=88, max_len=100, prompt_len=40)
+    for arch in ("nemotron-4-15b", "internlm2-20b", "paligemma-3b", "whisper-large-v3"):
+        phase_reference_check(arch)
     phase_train_reference_check()
     launches, variants, ssd_variants, rglru_variants = {}, {}, {}, {}
     for arch, per_forward in (
@@ -1230,6 +1357,19 @@ def main():
             ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
         (launches[arch], variants[arch], ssd_variants[arch],
          rglru_variants[arch]) = phase_full_width(arch, per_forward)
+    from repro_torch.configs import get_arch
+    internlm_24 = dataclasses.replace(get_arch("internlm2-20b"), n_layers=24)
+    for arch, per_forward, cfg in (
+            # 8 groups of 5 local layers and 1 global
+            ("gemma3-12b", {"flash_attention": (48, 48)}, None),
+            ("nemotron-4-15b", {"flash_attention": (32, 32)}, None),
+            ("internlm2-20b", {"flash_attention": (24, 24)}, internlm_24),
+            ("paligemma-3b", {"flash_attention": (18, 18)}, None),
+            # prefill: 32 encoder, 32 self and 32 cross attention layers;
+            # decode: 32 self and 32 cross
+            ("whisper-large-v3", {"flash_attention": (96, 64)}, None)):
+        limit = _param_bytes(cfg or get_arch(arch)) + MEMORY_HEADROOM
+        launches[arch], variants[arch], _, _ = phase_full_width(arch, per_forward, cfg, limit)
     train_launches, train_bwd_variants = phase_train_full()
     print(smi, flush=True)
     print(json.dumps({"kernels": [
@@ -1262,6 +1402,14 @@ def main():
         "recurrentgemma_flash_attention_launches":
             launches["recurrentgemma-9b"]["flash_attention"],
         "recurrentgemma_flash_launches_by_variant": variants["recurrentgemma-9b"],
+        # each full-width serve run of the dense-variant, vlm and encdec slice
+        "flash_attention_launches_by_model": {
+            a: launches[a]["flash_attention"] for a in ("gemma3-12b", "nemotron-4-15b",
+                                                        "internlm2-20b", "paligemma-3b",
+                                                        "whisper-large-v3")},
+        "flash_launches_by_variant_by_model": {
+            a: variants[a] for a in ("gemma3-12b", "nemotron-4-15b", "internlm2-20b",
+                                     "paligemma-3b", "whisper-large-v3")},
         "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,19 @@ the port: ``params_from_numpy`` takes the tree as numpy arrays (the
 stacked layer axis included, bf16 as ``ml_dtypes.bfloat16`` or any float)
 and returns the port's ``Model`` holding those weights.
 ``cache_from_numpy`` / ``cache_to_numpy`` do the same for caches (the
-dense KV cache, the ssm family's conv/SSM state, the hybrid family's
-``groups``/``tail`` tree of RG-LRU states and ring KV caches), so a test
-can compare caches as well as logits.  ``params_to_numpy`` and
+dense KV cache, gemma3's ``groups.local``/``groups.global`` rings and full
+caches, the encdec family's ``self`` cache with its ``cross_k``/``cross_v``,
+the ssm family's conv/SSM state, the hybrid family's ``groups``/``tail``
+tree of RG-LRU states and ring KV caches), so a test can compare caches as
+well as logits.  ``params_to_numpy`` and
 ``opt_state_to_numpy`` go the other way for training: a model's weights
 and an ``OptState``'s moments as the reference's stacked trees, so a
 test compares them leaf by leaf with the reference's ``(params,
 OptState)``.  The converters walk the model's own
-``ParamDef`` trees, so every family's layout converts alike, and every
+``ParamDef`` trees, so every family's layout converts alike (an untied
+``lm_head``, learned ``pos_embed``/``enc_pos_embed``, ``enc_blocks``,
+``enc_norm``, the decoder's ``ln_cross``/``cross``, gemma3's
+``q_norm``/``k_norm`` among them), and every
 leaf takes the dtype its ``ParamDef`` declares: the ssm family's
 ``A_log``, ``D``, ``dt_bias`` and cache ``ssm``, and the hybrid family's
 ``lambda_p`` and cache ``h``, stay fp32 whatever the compute dtype.

@@ -9,8 +9,15 @@ from repro_torch.configs.base import (  # noqa: F401
     register_arch,
     shape_applicable,
 )
-# Importing the per-arch modules registers them.  The other eight archs of
-# the reference come with their families (ROADMAP Queue 1).
-from repro_torch.configs import gemma_2b  # noqa: F401
-from repro_torch.configs import mamba2_2p7b  # noqa: F401
-from repro_torch.configs import recurrentgemma_9b  # noqa: F401
+# Importing the per-arch modules registers them.  mixtral-8x7b and
+# deepseek-v2-236b come with their modules (ROADMAP Queue 1, items 6-7).
+from repro_torch.configs import (  # noqa: F401
+    gemma_2b,
+    internlm2_20b,
+    nemotron_4_15b,
+    gemma3_12b,
+    whisper_large_v3,
+    paligemma_3b,
+    mamba2_2p7b,
+    recurrentgemma_9b,
+)

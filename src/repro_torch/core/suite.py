@@ -5,7 +5,8 @@ device-resident inputs, no data loading inside the measured region.  The
 port registers the train, prefill and decode tasks of the archs it has
 ported.  On the card, training runs the dense family only: the ssm and
 hybrid families' kernels (SSD, RG-LRU) have no backward yet, and their
-CUDA launches raise under autograd (ROADMAP Queue 1).
+CUDA launches raise under autograd (ROADMAP Queue 1); the vlm and encdec
+families do not train yet on either device (``Model.loss`` raises).
 """
 from __future__ import annotations
 
@@ -68,9 +69,12 @@ class Benchmark:
         arguments are ``(state, batch)`` with ``state = (model, OptState)``
         over a copy of the build's weights (the cached ``Built`` stays
         frozen for the other tasks), and the step updates the state (slot
-        0) in place.  Tokens are drawn from numpy with seed 1, on the
-        model's device.  ``device`` is used only when ``built`` is not
-        given.
+        0) in place.  Tokens are drawn from numpy with seed 1, the encdec
+        family's ``frames`` (B, enc_seq, d_model) x 0.1 and the vlm
+        family's ``patch_embeds`` (B, n_prefix, d_model) x 0.02 from numpy
+        with seed 2 (standard normal, as float32), all on the model's
+        device; the caches hold ``seq + 8 + n_prefix`` positions.
+        ``device`` is used only when ``built`` is not given.
         """
         if self.task not in ("train", "infer_prefill", "infer_decode"):
             raise ValueError(self.task)
@@ -81,6 +85,14 @@ class Benchmark:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq),
                                              dtype=np.int64).astype(np.int32))
         toks = toks.to(model.device)
+        batch_dict = {"tokens": toks}
+        rng2 = np.random.default_rng(2)
+        if cfg.family == "encdec":
+            frames = rng2.standard_normal((batch, cfg.enc_seq, cfg.d_model)) * 0.1
+            batch_dict["frames"] = torch.from_numpy(frames.astype(np.float32)).to(model.device)
+        if cfg.family == "vlm":
+            pe = rng2.standard_normal((batch, cfg.n_prefix, cfg.d_model)) * 0.02
+            batch_dict["patch_embeds"] = torch.from_numpy(pe.astype(np.float32)).to(model.device)
         if self.task == "train":
             from repro_torch.launch.steps import make_train_step
             from repro_torch.models.model import Model
@@ -91,12 +103,12 @@ class Benchmark:
             params = model.stacked_params()
             trained = Model(cfg, params).requires_grad_(True)
             state = (trained, adamw_init(params))
-            return make_train_step(cfg), (state, {"tokens": toks}), (0,)
-        cache = model.init_cache(batch, seq + 8)
+            return make_train_step(cfg), (state, batch_dict), (0,)
+        cache = model.init_cache(batch, seq + 8 + (cfg.n_prefix or 0))
         if self.task == "infer_prefill":
             return ((lambda m, b, c: m.prefill(b, c)),
-                    (model, {"tokens": toks}, cache), (2,))
-        model.prefill({"tokens": toks}, cache)
+                    (model, batch_dict, cache), (2,))
+        model.prefill(batch_dict, cache)
         return ((lambda m, t, c: m.decode_step(t, c)),
                 (model, toks[:, :1].contiguous(), cache), (2,))
 

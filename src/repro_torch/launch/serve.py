@@ -4,9 +4,13 @@
 A request queue with virtual-time arrivals, a batched prefill admission
 stage, and a batched decode loop with per-slot completion and refill.  It
 runs reduced configs on the CPU (tests) and full configs on the card
-through the same code; on the card every attention layer is the
-hand-written flash-attention kernel, and every prefill of a Mamba-2 or
-RG-LRU layer its hand-written scan kernel.
+through the same code; on the card every attention layer (the encdec
+family's encoder and cross attention included) is the hand-written
+flash-attention kernel, and every prefill of a Mamba-2 or RG-LRU layer
+its hand-written scan kernel.  The vlm family's patch prefix and the
+encdec family's frames are zeros at admission (their front ends are
+stubs, as in the reference); a vlm slot's positions start past the
+prefix.
 
 Admission: each loop iteration admits one *wave* — every waiting request
 paired with a free slot — through one prefill call per prompt-length
@@ -82,6 +86,9 @@ class ServeEngine:
         self.max_len = max_len
         self.donate = donate
         self.admission = admission
+        # vlm prefill writes n_prefix patch positions ahead of the prompt,
+        # so a slot's cache position starts past the prefix after admission
+        self._prefix = built.cfg.n_prefix if built.cfg.family == "vlm" else 0
         # per-leaf batch axis of every cache leaf, from the declared axes
         self._cache_axes = map_defs(lambda d: d.axes.index("cache_batch"),
                                     self.model.cache_defs(slots, max_len))
@@ -93,9 +100,9 @@ class ServeEngine:
         self.cache = self.model.init_cache(self.slots, self.max_len)
         self.slot_req: List[Optional[Request]] = [None] * self.slots
         # host-side mirror of the per-layer "len" vectors: admission sets a
-        # row to prompt_len, every decode step advances all rows.  Guarded
-        # in run(): an *active* row overflowing max_len would have its KV
-        # write clamped to the cache edge, corrupting attention.
+        # row to prefix + prompt_len, every decode step advances all rows.
+        # Guarded in run(): an *active* row overflowing max_len would have
+        # its KV write clamped to the cache edge, corrupting attention.
         self.slot_pos = np.zeros(self.slots, np.int32)
         self.steps = 0
         self._admit_calls = 0
@@ -110,17 +117,26 @@ class ServeEngine:
         b = ADMIT_MIN_BUCKET
         while b < n:
             b *= 2
-        return min(b, self.max_len)
+        return min(b, self.max_len - self._prefix)
 
     def _admit_impl(self, tokens: torch.Tensor, lengths: torch.Tensor,
                     rows: torch.Tensor, slots: torch.Tensor, cache: dict):
         """One admission call: prefill ``tokens`` (kb, Lpad) with valid
         prefixes ``lengths`` (kb,) on a fresh kb-row mini cache, then copy
-        mini row ``rows[i]`` into cache row ``slots[i]``.  Returns each
-        mini row's first token and the updated cache."""
-        mini = self.model.init_cache(tokens.shape[0], self.max_len)
-        logits, mini = self.model.prefill({"tokens": tokens}, mini,
-                                          lengths=lengths)
+        mini row ``rows[i]`` into cache row ``slots[i]`` (every leaf along
+        its declared ``cache_batch`` axis: the encdec family's cross keys
+        and values too).  Returns each mini row's first token and the
+        updated cache."""
+        kb = tokens.shape[0]
+        mini = self.model.init_cache(kb, self.max_len)
+        batch = {"tokens": tokens}
+        cfg, dev = self.cfg, tokens.device
+        # the stubbed front ends' inputs are zeros at serving time
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(kb, cfg.n_prefix, cfg.d_model, device=dev)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(kb, cfg.enc_seq, cfg.d_model, device=dev)
+        logits, mini = self.model.prefill(batch, mini, lengths=lengths)
         first = logits[:, 0].argmax(dim=-1).to(torch.int32)
         if not self.donate:
             cache = clone_tree(cache)
@@ -173,7 +189,7 @@ class ServeEngine:
             self._admit_shapes.add((kb, lpad))
             for i, (s, r) in enumerate(grp):
                 self.slot_req[s] = r
-                self.slot_pos[s] = len(r.prompt)
+                self.slot_pos[s] = self._prefix + len(r.prompt)
                 first_by_slot[s] = int(first[i])
         return [first_by_slot[s] for s, _ in pairs]
 
@@ -370,8 +386,9 @@ def main(argv=None) -> int:
                      prompt_len=args.prompt_len, max_new=args.max_new,
                      seed=args.seed, prompt_profile=args.prompt_profile)
     reqs = generate(spec, vocab=built.cfg.vocab)
+    prefix = built.cfg.n_prefix if built.cfg.family == "vlm" else 0
     engine = ServeEngine(built, slots=args.slots,
-                         max_len=cache_len_bound(reqs),
+                         max_len=cache_len_bound(reqs, prefix=prefix),
                          admission=args.admission)
     out = engine.run(reqs)
     m = summarize_metrics(out)

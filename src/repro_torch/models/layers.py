@@ -8,9 +8,10 @@ explicit ``torch.Generator``.  The layer functions take their parameters
 as a mapping ``p`` (a dict or an ``nn.ParameterDict``), like the
 reference's param pytrees.
 
-What gemma-2b, mamba2-2.7b and recurrentgemma-9b do not use is left out
-and raises ``NotImplementedError`` naming the ROADMAP item: ``cross_kv``
-(whisper), ``qk_norm`` (gemma3) and ``opt_bf16_probs``.
+The attention layer takes ``qk_norm`` (gemma3: an RMSNorm over the head
+dim of q and k, before RoPE) and ``cross_kv`` (whisper's decoder: keys
+and values given, no RoPE, no cache).  ``opt_bf16_probs`` is left out and
+raises ``NotImplementedError`` naming the ROADMAP item.
 
 The KV cache is updated in place: ``_row_update`` and ``_ring_store``
 write into the cache tensors they are given, and ``gqa_attention``
@@ -169,18 +170,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def gqa_defs(cfg, layers_prefix: Tuple[int, ...] = ()) -> dict:
     """Param defs for a standard GQA attention layer (optionally stacked)."""
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is not ported yet (ROADMAP "
-                                  "Queue 1, slice 5: gemma3-12b)")
     D = cfg.head_dim
     lp = layers_prefix
     la = ("layers",) * len(lp)
-    return {
+    defs = {
         "wq": ParamDef(lp + (cfg.d_model, cfg.n_heads, D), la + ("w_embed", "w_heads", "w_qk"), cfg.param_dtype),
         "wk": ParamDef(lp + (cfg.d_model, cfg.n_kv_heads, D), la + ("w_embed", "w_kv_heads", "w_qk"), cfg.param_dtype),
         "wv": ParamDef(lp + (cfg.d_model, cfg.n_kv_heads, D), la + ("w_embed", "w_kv_heads", "w_qk"), cfg.param_dtype),
         "wo": ParamDef(lp + (cfg.n_heads, D, cfg.d_model), la + ("w_heads", "w_qk", "w_embed"), cfg.param_dtype),
     }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef(lp + (D,), la + ("w_qk",), cfg.param_dtype, "zeros")
+        defs["k_norm"] = ParamDef(lp + (D,), la + ("w_qk",), cfg.param_dtype, "zeros")
+    return defs
 
 
 def _row_update(cache_arr: torch.Tensor, fresh: torch.Tensor,
@@ -238,17 +240,24 @@ def gqa_attention(
     seq_lens: Optional[torch.Tensor] = None,    # (B,) valid prefix per row
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One attention layer; returns (output, cache) with the cache updated
-    in place (``None`` without a cache)."""
-    if cross_kv is not None:
-        raise NotImplementedError("cross_kv (encoder-decoder attention) is "
-                                  "not ported yet (ROADMAP Queue 1, slice 5: "
-                                  "whisper-large-v3)")
+    in place (``None`` without a cache).  ``cross_kv`` (k, v), each
+    (B, Sk, K, D), replaces the layer's own keys and values: no RoPE, no
+    k norm, and the cache is not read."""
     B, S, E = x.shape
     D = cfg.head_dim
     cdt = cfg.compute_dtype
     q = torch.einsum("bse,ehd->bshd", x, p["wq"].to(cdt))
-    k = torch.einsum("bse,ekd->bskd", x, p["wk"].to(cdt))
-    v = torch.einsum("bse,ekd->bskd", x, p["wv"].to(cdt))
+    if cross_kv is None:
+        k = torch.einsum("bse,ekd->bskd", x, p["wk"].to(cdt))
+        v = torch.einsum("bse,ekd->bskd", x, p["wv"].to(cdt))
+    else:
+        k, v = cross_kv
+
+    if cfg.qk_norm:
+        # over the head dim, after the projections and before RoPE
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        if cross_kv is None:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
     if positions is None:
         # a fresh sequence from position 0 (the loss path): the offset is
@@ -258,13 +267,13 @@ def gqa_attention(
     else:
         q_offset = positions[:, 0] if positions.ndim == 2 else positions[0]
 
-    if cfg.rope_theta > 0:
+    if cfg.rope_theta > 0 and cross_kv is None:
         cos, sin = rope_freqs(positions, D, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
     kv_len = None
-    if cache is not None:
+    if cache is not None and cross_kv is None:
         # per-row positions: "len" is a (B,) vector, so each row (serve
         # slot) writes and attends at its own offset
         idx = cache["len"].clone()

@@ -1,5 +1,5 @@
-"""The model (port of ``repro.models.model``: the dense, ssm and hybrid
-branches).
+"""The model (port of ``repro.models.model``: the dense, vlm, encdec, ssm
+and hybrid branches).
 
 ``Model`` is an ``nn.Module`` that holds its weights:
 
@@ -11,36 +11,46 @@ branches).
 
 The weights are declared as the reference declares them, with the stacked
 layer axes, and materialised once; each layer's module (``Block`` for an
-attention layer, ``MambaBlock`` for the ssm family, ``RecBlock`` for the
-hybrid family's recurrent layers) then holds views of its slice, and the
-layers run as a Python loop in the reference's order.  The caches keep the
-reference's stacked layout and are updated in place (the reference
-donates them):
+attention layer, ``DecBlock`` for the encdec family's decoder layers,
+``MambaBlock`` for the ssm family, ``RecBlock`` for the hybrid family's
+recurrent layers) then holds views of its slice, and the layers run as a
+Python loop in the reference's order.  The caches keep the reference's
+stacked layout and are updated in place (the reference donates them):
 
-  dense   {"blocks": {"k", "v": (L, B, max, K, D), "len": (L, B)}}
-  ssm     {"blocks": {"conv": (L, B, W-1, C), "ssm": (L, B, H, P, N), "len"}}
-  hybrid  {"groups": {"rec": {"conv", "h", "len"} with prefix (G, pattern_rec),
-                      "attn": {"k", "v", "len"} with prefix (G,)},
-           "tail": {"conv", "h", "len"} with prefix (tail,)}
+  dense, vlm  {"blocks": {"k", "v": (L, B, max, K, D), "len": (L, B)}}
+  grouped     {"groups": {"local": {"k", "v", "len"} with prefix (G, global_every-1),
+                          "global": {"k", "v", "len"} with prefix (G,)}}
+  encdec      {"blocks": {"self": {"k", "v", "len"}, "cross_k", "cross_v":
+                          (L, B, enc_seq, K, D)}}
+  ssm         {"blocks": {"conv": (L, B, W-1, C), "ssm": (L, B, H, P, N), "len"}}
+  hybrid      {"groups": {"rec": {"conv", "h", "len"} with prefix (G, pattern_rec),
+                          "attn": {"k", "v", "len"} with prefix (G,)},
+               "tail": {"conv", "h", "len"} with prefix (tail,)}
 
-The hybrid family's attention layers are local: their KV cache is a ring
-of ``local_window`` slots once ``max_len`` exceeds the window.
+Local attention layers (the hybrid family's, gemma3's grouped 5:1
+pattern, a dense stack with ``local_window`` and no ``global_every``) keep
+a ring of ``local_window`` slots once ``max_len`` exceeds the window.
+The vlm family prepends ``patch_embeds`` (B, n_prefix, d_model) to the
+token embeddings under the prefix mask; the encdec family encodes
+``frames`` (B, enc_seq, d_model) once (``encode``) and its decoder layers
+attend to the encoder's keys and values, cached per layer at prefill
+(``_fill_cross``).
 
 Training: ``loss(batch)`` is the reference's next-token NLL (fp32, from
 ``logsumexp - gold``; chunked under ``cfg.opt_ce_chunk``), with each layer
 of its forward under ``cfg.remat`` (``"full"``: ``torch.utils.checkpoint``;
 ``"dots"``: selective checkpointing that keeps the plain matrix products'
-outputs; ``"none"``).  A model built for inference holds frozen
-parameters (``requires_grad=False``), so serving builds no autograd graph;
-the train state holds a second model over a copy of the weights
-(``stacked_params``) whose parameters require grad.  ``param_index`` maps
-each parameter to its leaf and layer index in the reference's stacked
-tree, and ``leaf_views`` gives the matching views of any tree of that
-layout (the optimizer's moments).
+outputs; ``"none"``); the vlm and encdec families do not train yet.  A
+model built for inference holds frozen parameters
+(``requires_grad=False``), so serving builds no autograd graph; the train
+state holds a second model over a copy of the weights (``stacked_params``)
+whose parameters require grad.  ``param_index`` maps each parameter to its
+leaf and layer index in the reference's stacked tree, and ``leaf_views``
+gives the matching views of any tree of that layout (the optimizer's
+moments).
 
-The dense family without a local window, the ssm family (mamba2) and the
-hybrid family (recurrentgemma) are ported; the others come with their
-slices (ROADMAP Queue 1).
+The moe family and MLA come with their modules (ROADMAP Queue 1, items
+6-7).
 """
 from __future__ import annotations
 
@@ -99,24 +109,21 @@ def _hybrid_split(cfg):
     return G, cfg.n_layers - G * (cfg.pattern_rec + 1)
 
 
+def _grouped_split(cfg):
+    """(groups G, local layers per group) of gemma3's pattern: G x
+    (global_every - 1 local layers, one global layer)."""
+    return cfg.n_layers // cfg.global_every, cfg.global_every - 1
+
+
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "encdec", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
-            f"Queue 1, slice 5)")
-    if cfg.global_every > 0 or (cfg.local_window > 0 and cfg.family != "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: local/global attention patterns of the dense and "
-            f"moe families are not ported yet (ROADMAP Queue 1, slice 5: "
-            f"gemma3-12b)")
+            f"Queue 1, item 6: models/moe.py)")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA is not ported yet "
-                                  f"(ROADMAP Queue 1, slice 5: deepseek-v2)")
-    if not cfg.tie_embeddings or cfg.pos_embed == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: untied heads and learned positions are not ported "
-            f"yet (ROADMAP Queue 1, slice 5)")
+                                  f"(ROADMAP Queue 1, item 7: deepseek-v2)")
     if cfg.family == "hybrid" and cfg.opt_gate_bf16:
         raise NotImplementedError(
             f"{cfg.name}: opt_gate_bf16 (bf16 RG-LRU gate products) is not "
@@ -124,14 +131,21 @@ def check_supported(cfg) -> None:
 
 
 def param_defs(cfg) -> Dict[str, Any]:
-    """The reference's param tree: stacked ``blocks`` for the dense and
-    ssm families, ``groups``/``tail`` for the hybrid family."""
+    """The reference's param tree: stacked ``blocks`` for the dense, vlm,
+    encdec and ssm families, ``groups`` for gemma3's pattern,
+    ``groups``/``tail`` for the hybrid family."""
     check_supported(cfg)
     d = {
         "embed": ParamDef((cfg.vocab, cfg.d_model), ("w_vocab", "w_embed_pod"),
                           cfg.param_dtype, "embed"),
         "final_norm": _norm_def(cfg),
     }
+    if not cfg.tie_embeddings:
+        d["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), ("w_embed_pod", "w_vocab"),
+                                cfg.param_dtype)
+    if cfg.pos_embed == "learned":
+        d["pos_embed"] = ParamDef((cfg.max_position, cfg.d_model), (None, "w_embed_pod"),
+                                  cfg.param_dtype, "embed", scale=0.02)
     lp = (cfg.n_layers,)
     if cfg.family == "ssm":
         d["blocks"] = {"ln": _norm_def(cfg, lp), "mix": ssm.mamba2_defs(cfg, lp)}
@@ -141,6 +155,17 @@ def param_defs(cfg) -> Dict[str, Any]:
                        "attn": _attn_block_defs(cfg, (G,))}
         if tail:
             d["tail"] = _rec_block_defs(cfg, (tail,))
+    elif cfg.family == "encdec":
+        d["enc_pos_embed"] = ParamDef((cfg.enc_seq, cfg.d_model), (None, "w_embed_pod"),
+                                      cfg.param_dtype, "embed", scale=0.02)
+        d["enc_blocks"] = _attn_block_defs(cfg, (cfg.n_enc_layers,))
+        d["enc_norm"] = _norm_def(cfg)
+        d["blocks"] = {**_attn_block_defs(cfg, lp), "ln_cross": _norm_def(cfg, lp),
+                       "cross": L.gqa_defs(cfg, lp)}
+    elif cfg.global_every > 0:   # gemma3's grouped pattern
+        G, n_local = _grouped_split(cfg)
+        d["groups"] = {"local": _attn_block_defs(cfg, (G, n_local)),
+                       "global": _attn_block_defs(cfg, (G,))}
     else:
         d["blocks"] = _attn_block_defs(cfg, lp)
     return d
@@ -150,17 +175,24 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+#: the attention mask of each attention-layer kind
+_MASKS = {"global": "causal", "local": "local", "prefix": "prefix", "full": "full"}
+
+
 class Block(nn.Module):
     """One attention layer: RMSNorm -> attention -> RMSNorm -> FFN, with
     residuals.  ``p`` is the layer's (unstacked) slice of the param tree;
-    ``kind`` is "global" (causal) or "local" (sliding window of
-    ``cfg.local_window``, a ring cache)."""
+    ``kind`` is "global" (causal), "local" (sliding window of
+    ``cfg.local_window``, a ring cache), "prefix" (the vlm family: causal
+    but for the ``n_prefix`` patch positions, which every query sees) or
+    "full" (the encdec family's encoder)."""
 
     def __init__(self, cfg, p: Mapping[str, Any], kind: str = "global"):
         super().__init__()
         self.cfg = cfg
-        self.mask_type = "local" if kind == "local" else "causal"
+        self.mask_type = _MASKS[kind]
         self.window = cfg.local_window if kind == "local" else 0
+        self.prefix_len = cfg.n_prefix if kind == "prefix" else 0
         self.ln1 = _frozen(p["ln1"])
         self.attn = nn.ParameterDict({k: _frozen(v) for k, v in p["attn"].items()})
         self.ln2 = _frozen(p["ln2"])
@@ -172,8 +204,57 @@ class Block(nn.Module):
         cfg = self.cfg
         h = L.rms_norm(x, self.ln1, cfg.norm_eps)
         h, _ = L.gqa_attention(self.attn, h, cfg, mask_type=self.mask_type,
-                               window=self.window, positions=positions,
-                               cache=cache, seq_lens=seq_lens)
+                               window=self.window, prefix_len=self.prefix_len,
+                               positions=positions, cache=cache, seq_lens=seq_lens)
+        x = x + h
+        h = L.rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + L.ffn(self.mlp, h, cfg)
+
+
+class DecBlock(nn.Module):
+    """One decoder layer of the encdec family: RMSNorm -> causal
+    self-attention -> RMSNorm -> cross-attention over the encoder's keys
+    and values (mask "full") -> RMSNorm -> FFN, with residuals.  With a
+    cache ({"self": kv cache, "cross_k", "cross_v"}) the cross keys and
+    values are the cached ones; without, they are projected from
+    ``enc_out``."""
+
+    def __init__(self, cfg, p: Mapping[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _frozen(p["ln1"])
+        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in p["attn"].items()})
+        self.ln_cross = _frozen(p["ln_cross"])
+        self.cross = nn.ParameterDict({k: _frozen(v) for k, v in p["cross"].items()})
+        self.ln2 = _frozen(p["ln2"])
+        self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in p["mlp"].items()})
+
+    def cross_kv(self, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The encoder's keys and values for this layer: (B, enc_seq, K, D)
+        each, in the compute dtype."""
+        cdt = self.cfg.compute_dtype
+        return (torch.einsum("bse,ekd->bskd", enc_out, self.cross["wk"].to(cdt)),
+                torch.einsum("bse,ekd->bskd", enc_out, self.cross["wv"].to(cdt)))
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[dict] = None,
+                seq_lens: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        h, _ = L.gqa_attention(self.attn, h, cfg, mask_type="causal",
+                               positions=positions,
+                               cache=None if cache is None else cache["self"],
+                               seq_lens=seq_lens)
+        x = x + h
+        h = L.rms_norm(x, self.ln_cross, cfg.norm_eps)
+        if cache is None:
+            ckv = self.cross_kv(enc_out)
+        else:
+            ckv = (cache["cross_k"].to(cdt), cache["cross_v"].to(cdt))
+        h, _ = L.gqa_attention(self.cross, h, cfg, mask_type="full",
+                               positions=positions, cross_kv=ckv)
         x = x + h
         h = L.rms_norm(x, self.ln2, cfg.norm_eps)
         return x + L.ffn(self.mlp, h, cfg)
@@ -229,16 +310,26 @@ def _layer(tree, i):
 
 
 def _layout(cfg):
-    """The layers in the reference's run order, as (path of the stacked
-    subtree, index into its layer axes, module kind)."""
-    if cfg.family != "hybrid":
-        kind = "mamba" if cfg.family == "ssm" else "global"
+    """The (decoder) layers in the reference's run order, as (path of the
+    stacked subtree, index into its layer axes, module kind).  The grouped
+    stacks (the hybrid family, gemma3's pattern) run per group: its
+    pattern's layers, then its attention layer."""
+    if cfg.family == "hybrid":
+        G, tail = _hybrid_split(cfg)
+        pattern = [(("groups", "rec"), j, "rec") for j in range(cfg.pattern_rec)]
+        last = (("groups", "attn"), "local")
+    elif cfg.global_every > 0 and cfg.family in ("dense", "vlm"):
+        (G, n_local), tail = _grouped_split(cfg), 0
+        pattern = [(("groups", "local"), j, "local") for j in range(n_local)]
+        last = (("groups", "global"), "global")
+    else:
+        kind = {"ssm": "mamba", "encdec": "dec", "vlm": "prefix"}.get(
+            cfg.family, "local" if cfg.local_window > 0 else "global")
         return [(("blocks",), (i,), kind) for i in range(cfg.n_layers)]
-    G, tail = _hybrid_split(cfg)
     out = []
     for g in range(G):
-        out += [(("groups", "rec"), (g, j), "rec") for j in range(cfg.pattern_rec)]
-        out.append((("groups", "attn"), (g,), "local"))
+        out += [(path, (g, j), kind) for path, j, kind in pattern]
+        out.append((last[0], (g,), last[1]))
     return out + [(("tail",), (i,), "rec") for i in range(tail)]
 
 
@@ -276,15 +367,18 @@ def _remat(fn, mode: str):
 
 
 class Model(nn.Module):
-    """The dense, ssm or hybrid model over a param tree in the reference's
-    layout (the stacked leaves carry their layer axes)."""
+    """The model over a param tree in the reference's layout (the stacked
+    leaves carry their layer axes)."""
 
     def __init__(self, cfg, params: Mapping[str, Any]):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = _frozen(params["embed"])
-        self.final_norm = _frozen(params["final_norm"])
+        # the top-level leaves, under their names in the tree
+        for name in ("embed", "final_norm", "lm_head", "pos_embed",
+                     "enc_pos_embed", "enc_norm"):
+            if name in params:
+                setattr(self, name, _frozen(params[name]))
         self._layout = _layout(cfg)
         blocks = []
         for path, idx, kind in self._layout:
@@ -293,9 +387,15 @@ class Model(nn.Module):
                 blocks.append(MambaBlock(cfg, p))
             elif kind == "rec":
                 blocks.append(RecBlock(cfg, p))
+            elif kind == "dec":
+                blocks.append(DecBlock(cfg, p))
             else:
                 blocks.append(Block(cfg, p, kind))
         self.blocks = nn.ModuleList(blocks)
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, _layer(params["enc_blocks"], (i,)), "full")
+                for i in range(cfg.n_enc_layers))
 
     @property
     def device(self) -> torch.device:
@@ -306,7 +406,11 @@ class Model(nn.Module):
 
     # ---------------- embedding / head ----------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (B, S, E) in the compute dtype; with learned
+        positions, plus ``pos_embed`` at ``positions`` ((S,) or per-row
+        (B, S); default 0..S-1)."""
         cfg = self.cfg
         x = self.embed[tokens.long()].to(cfg.compute_dtype)
         if cfg.embed_scale:
@@ -314,23 +418,64 @@ class Model(nn.Module):
             # reference (sqrt(2048) is 45.25 in bf16)
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype,
                                  device=x.device)
+        if cfg.pos_embed == "learned":
+            if positions is None:
+                positions = torch.arange(tokens.shape[1], device=x.device)
+            x = x + self.pos_embed[positions.long()].to(cfg.compute_dtype)
         return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = x @ self.embed.to(cfg.compute_dtype).t()
+        # cast to the compute dtype at every call, as the reference does
+        w = self.embed.t() if cfg.tie_embeddings else self.lm_head
+        logits = x @ w.to(cfg.compute_dtype)
         if cfg.final_softcap > 0:
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
         return logits
 
-    def _run_layers(self, x, positions, cache, seq_lens=None, remat="none"):
-        for blk, (path, idx, _) in zip(self.blocks, self._layout):
+    def _run_layers(self, x, positions, cache, seq_lens=None, remat="none",
+                    enc_out=None):
+        for blk, (path, idx, kind) in zip(self.blocks, self._layout):
             # per-layer views of the stacked cache: the in-place writes of
             # the layer land in the stacked tensors
             ci = None if cache is None else _layer(_subtree(cache, path), idx)
-            x = _remat(blk, remat)(x, positions=positions, cache=ci, seq_lens=seq_lens)
+            kw = {"enc_out": enc_out} if kind == "dec" else {}
+            x = _remat(blk, remat)(x, positions=positions, cache=ci, seq_lens=seq_lens,
+                                   **kw)
         return x
+
+    def _inputs(self, batch: Mapping[str, torch.Tensor],
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The first layer's input: the token embeddings, behind the vlm
+        family's ``patch_embeds``."""
+        x = self._embed(batch["tokens"], positions)
+        if self.cfg.family == "vlm":
+            pe = batch["patch_embeds"].to(device=x.device, dtype=self.cfg.compute_dtype)
+            x = torch.cat([pe, x], dim=1)
+        return x
+
+    # ---------------- encoder (whisper) ----------------
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, enc_seq, d_model) precomputed (the conv front end is
+        a stub, as in the reference) -> the encoder's output: learned
+        positions, full-mask self-attention layers, then ``enc_norm``."""
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        x = frames.to(device=self.device, dtype=cdt) + self.enc_pos_embed.to(cdt)
+        for blk in self.enc_blocks:
+            x = blk(x, positions=None)
+        return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
+
+    def _fill_cross(self, cache: Dict[str, Any], enc_out: torch.Tensor) -> None:
+        """Write every decoder layer's cross keys and values (projected from
+        ``enc_out``) into ``cache`` in place."""
+        ck, cv = cache["blocks"]["cross_k"], cache["blocks"]["cross_v"]
+        for i, blk in enumerate(self.blocks):
+            k, v = blk.cross_kv(enc_out)
+            ck[i].copy_(k)
+            cv[i].copy_(v)
 
     # ---------------- parameters in the reference's layout ----------------
 
@@ -343,6 +488,8 @@ class Model(nn.Module):
             if parts[0] == "blocks":
                 path, idx, _ = self._layout[int(parts[1])]
                 out.append((path + parts[2:], idx))
+            elif parts[0] == "enc_blocks":
+                out.append((("enc_blocks",) + parts[2:], (int(parts[1]),)))
             else:
                 out.append((parts, ()))
         return out
@@ -366,11 +513,13 @@ class Model(nn.Module):
 
     def forward(self, batch: Mapping[str, torch.Tensor],
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        tokens = batch["tokens"]
-        x = self._embed(tokens)
+        """Logits at every position (the vlm family's patch positions
+        included)."""
+        x = self._inputs(batch, positions)
+        enc_out = self.encode(batch["frames"]) if self.cfg.family == "encdec" else None
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        return self._head(self._run_layers(x, positions, None))
+        return self._head(self._run_layers(x, positions, None, enc_out=enc_out))
 
     def loss(self, batch: Mapping[str, torch.Tensor]):
         """(loss, {"loss", "ppl"}): the mean next-token NLL in fp32 from
@@ -380,6 +529,12 @@ class Model(nn.Module):
         recomputed in the backward, so the full (B, S, V) fp32 logits never
         exist."""
         cfg = self.cfg
+        if cfg.family in ("vlm", "encdec"):
+            # the reference predicts the text tokens only (the vlm prefix
+            # sliced off) and encodes the frames under the loss
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family is not ported "
+                f"yet (ROADMAP Queue 1, item 15: the vlm and encdec loss)")
         tokens = batch["tokens"]
         x = self._embed(tokens)
         # positions None: each attention layer counts from 0 with an int
@@ -424,8 +579,20 @@ class Model(nn.Module):
             if tail:
                 d["tail"] = rglru.rglru_cache_defs(cfg, batch, (tail,))
             return d
-        return {"blocks": _kv_cache_defs(cfg, batch, max_len, "global",
-                                         (cfg.n_layers,))}
+        if cfg.family == "encdec":
+            shp = (cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+            la = ("layers", "cache_batch", "cache_seq", "cache_heads", None)
+            cross = ParamDef(shp, la, cfg.compute_dtype, "zeros")
+            return {"blocks": {
+                "self": _kv_cache_defs(cfg, batch, max_len, "global", (cfg.n_layers,)),
+                "cross_k": cross, "cross_v": cross}}
+        if cfg.global_every > 0:
+            G, n_local = _grouped_split(cfg)
+            return {"groups": {
+                "local": _kv_cache_defs(cfg, batch, max_len, "local", (G, n_local)),
+                "global": _kv_cache_defs(cfg, batch, max_len, "global", (G,))}}
+        kind = "local" if cfg.local_window else "global"
+        return {"blocks": _kv_cache_defs(cfg, batch, max_len, kind, (cfg.n_layers,))}
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         return L.map_defs(
@@ -440,13 +607,22 @@ class Model(nn.Module):
         enables right-padded batched prefill: row r's prompt is
         ``tokens[r, :lengths[r]]``, its cache ``len`` advances by
         ``lengths[r]`` and its logits are taken at ``lengths[r] - 1``.
+        The vlm family's patch prefix counts into the positions, the cache
+        ``len`` and ``lengths`` alike; the encdec family encodes
+        ``batch["frames"]`` and caches every decoder layer's cross keys and
+        values first.
         """
-        tokens = batch["tokens"]
-        x = self._embed(tokens)
+        cfg = self.cfg
+        x = self._inputs(batch)
+        if cfg.family == "encdec":
+            self._fill_cross(cache, self.encode(batch["frames"]))
         positions = torch.arange(x.shape[1], device=x.device)
         seq_lens = None
         if lengths is not None:
+            # the valid length in layer coordinates includes the prefix
             seq_lens = torch.as_tensor(lengths, dtype=torch.int32, device=x.device)
+            if cfg.family == "vlm":
+                seq_lens = seq_lens + cfg.n_prefix
         x = self._run_layers(x, positions, cache, seq_lens=seq_lens)
         if seq_lens is None:
             last = x[:, -1:]
@@ -462,15 +638,16 @@ class Model(nn.Module):
         (the ``len`` vector)."""
         pos = self._cache_len(cache)
         positions = pos[:, None] + torch.arange(1, device=pos.device)
-        x = self._run_layers(self._embed(tokens), positions, cache)
+        x = self._run_layers(self._embed(tokens, positions), positions, cache)
         return self._head(x), cache
 
     @staticmethod
     def _cache_len(cache: Mapping[str, Any]) -> torch.Tensor:
         """The per-row position vector (B,) from the first "len" leaf in
-        the reference's flatten order (sorted keys: ``blocks.len``, or the
-        hybrid family's ``groups.attn.len``); every layer's counter
-        advances identically."""
+        the reference's flatten order (sorted keys: ``blocks.len``, the
+        grouped pattern's ``groups.global.len``, the encdec family's
+        ``blocks.self.len`` or the hybrid family's ``groups.attn.len``);
+        every layer's counter advances identically."""
         def first_len(tree):
             for k in sorted(tree):
                 v = tree[k]

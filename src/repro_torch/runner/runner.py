@@ -224,7 +224,10 @@ class BenchmarkRunner:
                                    mode=scenario.mode)
             model_reused = self.stats.model_cache_hits > hits0
             reqs = generate_trace(spec, vocab=built.cfg.vocab)
-            max_len = cache_len_bound(reqs)
+            # sized for the whole replay: a row never needs more than its
+            # own prompt + budget (+ the vlm prefix)
+            prefix = built.cfg.n_prefix if built.cfg.family == "vlm" else 0
+            max_len = cache_len_bound(reqs, prefix=prefix)
             key = (scenario.build_key(), scenario.mode, max_len,
                    scenario.admission)
             engine, engine_reused = self._serve_engine_for(scenario, built,

@@ -158,3 +158,30 @@ def test_split_tensor_core_form_head_dims(hopper, shape):
     B = shape[0]
     kv = torch.tensor([500, 37, 300][:B], dtype=torch.int32)
     _check(hopper, torch.bfloat16, shape, variant="split", q_offset=kv - shape[1], kv_len=kv)
+
+
+_ROWS = lambda *x: torch.tensor(x, dtype=torch.int32)   # noqa: E731
+
+
+@pytest.mark.parametrize("variant,shape,kw", [
+    # gemma3-12b: 16 query heads over 8 kv heads of 256, a 1024-key window
+    ("tc", (1, 2048, 2048, 16, 8, 256), dict(mask_type="local", window=1024)),
+    # its decode over the 1024-slot ring: mask "full", kv_len min(pos + 1, 1024)
+    ("split", (4, 1, 1024, 16, 8, 256),
+     dict(mask_type="full", q_offset=_ROWS(2048, 3000, 100, 1023),
+          kv_len=_ROWS(1024, 1024, 101, 1024))),
+    # paligemma-3b: 256 patch positions + 128 tokens, MQA over 8 heads
+    ("tc", (2, 384, 384, 8, 1, 256), dict(mask_type="prefix", prefix_len=256)),
+    # whisper-large-v3: the 1500-frame encoder (not a multiple of the
+    # 64-key tile), cross attention over its keys at prefill and decode
+    ("tc", (1, 1500, 1500, 20, 20, 64), dict(mask_type="full")),
+    ("tc", (4, 128, 1500, 20, 20, 64), dict(mask_type="full")),
+    ("split", (4, 1, 1500, 20, 20, 64),
+     dict(mask_type="full", q_offset=_ROWS(128, 131, 140, 143))),
+], ids=["gemma3_local_prefill", "gemma3_ring_decode", "paligemma_prefix_prefill",
+        "whisper_encoder", "whisper_cross_prefill", "whisper_cross_decode"])
+def test_served_models_regimes(hopper, variant, shape, kw):
+    """The regimes the dense variants, vlm and encdec bring, in bf16 at
+    full width, through the variant the plan picks."""
+    assert fa_kernel.plan(*shape, torch.bfloat16)[0] == variant
+    _check(hopper, torch.bfloat16, shape, variant=variant, **kw)

@@ -5,7 +5,6 @@ Tolerance 1e-5 throughout: both sides compute in fp32 and differ only in
 summation order; the reference's attention takes its chunked ``lax.scan``
 path here (Sk above ``attn_chunk``), the port its plain version.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -146,13 +145,6 @@ def test_init_tree_is_seeded_and_follows_reference_fan_in():
 
 
 def test_unported_layer_features_raise_naming_the_roadmap():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.gqa_defs(dataclasses.replace(tcfg, qk_norm=True))
-    p = L.init_tree(L.gqa_defs(tcfg), torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.gqa_attention(p, x, tcfg, mask_type="full", cross_kv=(x, x))
     q = torch.zeros(1, 2, 2, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         L.attention(q, q, q, bf16_probs=True)

@@ -125,9 +125,24 @@ def test_build_model_is_seeded_and_params_match_reference_tree():
         params_from_numpy(bad, cfg, "cpu")
 
 
-@pytest.mark.parametrize("change", [dict(global_every=2), dict(local_window=64),
-                                    dict(use_mla=True), dict(tie_embeddings=False)])
+@pytest.mark.parametrize("change", [dict(use_mla=True),
+                                    dict(family="moe", n_experts=4, top_k=2, d_ff_expert=64),
+                                    dict(family="moe", n_experts=4, top_k=2, d_ff_expert=64,
+                                         local_window=64)])
 def test_unported_configs_raise_naming_the_roadmap(change):
     cfg = dataclasses.replace(get_arch("gemma-2b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-large-v3"])
+def test_unported_losses_raise_naming_the_roadmap(arch):
+    """The vlm and encdec families serve but do not train yet: their loss
+    raises, and so does the suite's train step (an error record through
+    the runner)."""
+    from repro_torch.core.suite import get_benchmark
+    step, (state, batch), _ = get_benchmark(arch, "train").make(batch=1, seq=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        state[0].loss(batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        step(state, batch)
