@@ -36,6 +36,14 @@ gemma-2b trained at full width (B=1, S=2048) through the suite's train
 step, whose every attention layer runs the forward kernel twice (once
 more under ``remat="full"``) and the backward kernel once, all through
 their tensor-core variants.
+The profiler (``repro_torch.profiler``) then profiles six of those cells
+on the same builds (``profile_cell_full``: gemma-2b ``infer_prefill``,
+``infer_decode``, ``train`` and ``serve``, mamba2-2.7b and
+recurrentgemma-9b ``infer_prefill``): each step split into host time the
+device did not hide and the device's busy time from a kernel trace, that
+time by op class, the step's roofline bound over it (fractions summing to
+1 within 1e-6, 0 < ``prof_util`` <= 1.05, attention time > 0, no
+``prof_error``), and ranks the findings (``profile_report``).
 One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -58,9 +66,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}   # fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12
 TOL = {"fp32": 2e-5, "bf16": 2e-2}             # as tests/test_kernels.py
 SSD_TOL = {"fp32": 5e-5, "bf16": 5e-2}         # as tests/test_kernels.py
 # A = -50: the chunk's cum runs to ~-3000, so fp32 e^(cum_i - cum_j) carries
@@ -193,33 +198,35 @@ def _spills_by_function(ptxas):
     return out
 
 
-def _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev):
-    """(B, Sq, Sk) bool: which keys each query of each row attends to."""
-    import torch
-    from repro_torch.kernels.flash_attention.ref import allowed_mask
-    qo = torch.as_tensor(q_offset, device=dev).reshape(-1)
-    q_pos = qo[:, None] + torch.arange(Sq, device=dev)
-    k_pos = torch.arange(Sk, device=dev)
-    vis = allowed_mask(q_pos, k_pos, mask_type, window, prefix_len)
-    vis = vis.expand(B, Sq, Sk)
-    if kv_len is not None:
-        lim = torch.as_tensor(kv_len, device=dev).reshape(-1)[:, None, None]
-        vis = vis & (k_pos < lim)
-    return vis
+def _peak(dtype):
+    """The card's peak FLOP/s for ``dtype`` ("bf16" on the tensor cores,
+    "fp32" outside them): ``core.hardware.DEFAULT_HW``, the H100 SXM's
+    published dense peaks at the 700 W limit, which the profiler's bounds
+    use too."""
+    from repro_torch.core.hardware import DEFAULT_HW
+    return DEFAULT_HW.peak(dtype)
 
 
-def _bound(dtype, B, Sq, H, K, D, vis):
-    """Least time for this call's work: the visible (query, key) pairs'
+def _roofline(flops, nbytes, peak):
+    """Least time for work of ``flops`` at ``peak`` FLOP/s and ``nbytes``
+    at the memory rate (``DEFAULT_HW.hbm_bw``): (ms, "operations" or
+    "bytes")."""
+    from repro_torch.core.hardware import DEFAULT_HW
+    t_ops, t_bytes = flops / peak, nbytes / DEFAULT_HW.hbm_bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bound(dtype, B, Sq, Sk, H, K, D, **mask):
+    """Least time for one flash-attention call's work (``kernel.cost``,
+    the count the profiler uses too): the visible (query, key) pairs'
     FLOPs at the type's peak, or the bytes of q, the output and the keys
     and values some query sees, at the memory rate.  Returns (ms, by,
     flops, bytes)."""
-    elem = 2 if dtype == "bf16" else 4
-    flops = 4.0 * D * H * int(vis.sum().item())
-    kv_rows = int(vis.any(dim=1).sum().item())
-    nbytes = elem * (2 * B * Sq * H * D + 2 * kv_rows * K * D)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import cost
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    flops, nbytes = cost(B, Sq, Sk, H, K, D, tdt, **mask)
+    return (*_roofline(flops, nbytes, _peak(dtype)), flops, nbytes)
 
 
 def device_ms(fn, name="", iters=20):
@@ -237,7 +244,7 @@ def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal"
     bound, the plain version's time and SDPA's as a yardstick."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, plan
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, plan, visible
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
@@ -265,8 +272,11 @@ def kernel_case(name, dtype, B, Sq, Sk, H, K, D, timed=False, mask_type="causal"
     check(res["finite"] and err <= TOL[dtype],
           f"kernel disagrees with its plain version: {res}")
     if timed:
-        vis = _visible(B, Sq, Sk, mask_type, window, prefix_len, q_offset, kv_len, dev)
-        res["bound_ms"], res["bound_by"], flops, nbytes = _bound(dtype, B, Sq, H, K, D, vis)
+        mask = dict(mask_type=mask_type, window=window, prefix_len=prefix_len,
+                    q_offset=q_offset, kv_len=kv_len)
+        res["bound_ms"], res["bound_by"], flops, nbytes = _bound(dtype, B, Sq, Sk, H, K, D,
+                                                                 **mask)
+        vis = visible(B, Sq, Sk, **mask).to(dev)
         res["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw), iters=50, warmup=5)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         res["gbytes_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
@@ -404,6 +414,7 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (BWD_TILE, BWD_VARIANTS,
                                                             bwd_chunk_tiles, bwd_dkv_blocks,
+                                                            cost_bwd,
                                                             flash_attention_bwd_cuda,
                                                             launch_bwd, plan_bwd)
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -442,20 +453,18 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
     check(res["finite"] and res["max_rel_err"] <= BWD_TOL[dtype] and res["bitwise_equal_rerun"],
           f"backward kernel disagrees with its plain version or is not deterministic: {res}")
     if timed:
-        vis = _visible(B, S, S, mask_type, window, prefix_len, 0, None, dev)
-        flops = 10.0 * H * D * int(vis.sum().item())    # 5 products of 2 D per pair and head
-        elem = 2 if dtype == "bf16" else 4
-        nbytes = elem * 4 * B * S * D * (H + K)          # q, o, do, dq; k, v, dk, dv
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-        res["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        # 5 products of 2 D a visible pair and head; q, o, do, dq and k, v,
+        # dk, dv once (``kernel.cost_bwd``, the profiler's count too)
+        flops, nbytes = cost_bwd(B, S, S, H, K, D, tdt, mask_type=mask_type, window=window,
+                                 prefix_len=prefix_len)
+        res["bound_ms"], res["bound_by"] = _roofline(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(call, iters=10, warmup=2)
         dev_ms = _device_ms_by(call, ("fa_bwd_",) + FA_BWD_KERNELS[variant])
         res["device_ms"] = dev_ms["fa_bwd_"]
         res["passes_device_ms"] = {n: dev_ms[n] for n in FA_BWD_KERNELS[variant]}
         # each pass's own products at the peak (computed, not measured)
         res["passes_products_at_peak_ms"] = {
-            n: p * flops / 5 / PEAK_FLOPS[dtype] * 1e3
+            n: p * flops / 5 / _peak(dtype) * 1e3
             for n, p in zip(FA_BWD_KERNELS[variant], FA_BWD_PASS_PRODUCTS) if p}
         if dtype == "bf16":   # both variants on the same inputs, in turns
             args = dict(q_offset=0, kv_len=S, scale=D ** -0.5, **kw)
@@ -515,27 +524,17 @@ def phase_fa_backward_kernels():
 
 
 def _ssd_work(dtype, B, S, H, P, N, init):
-    """The work of one SSD call, whatever computes it: the chunked
-    algorithm's FLOPs at chunk 256 (C.B^T once per row and chunk, shared
-    by the heads), and the bytes of x, dt, A, B, C (and the initial state,
-    when one is given) read once and y and the final state written once.
-    Returns (flops, bytes)."""
-    elem = 2 if dtype == "bf16" else 4
-    flops = 0.0
-    for s0 in range(0, S, 256):
-        n = min(256, S - s0)
-        flops += B * (2.0 * n * n * N + H * (2.0 * n * n * P + 4.0 * n * N * P))
-    nbytes = (elem * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
-              + 4 * B * H * P * N * (2 if init else 1))
-    return flops, nbytes
+    """The work of one SSD call (``ssd/kernel.py:cost``, the profiler's
+    count too): (flops, bytes)."""
+    import torch
+    from repro_torch.kernels.ssd.kernel import cost
+    return cost(B, S, H, P, N, torch.bfloat16 if dtype == "bf16" else torch.float32, init)
 
 
 def _ssd_bound(dtype, B, S, H, P, N, init):
     """Least time for one SSD call: its FLOPs (``_ssd_work``) at the bf16
     peak, or its bytes at the memory rate."""
-    flops, nbytes = _ssd_work(dtype, B, S, H, P, N, init)
-    t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _roofline(*_ssd_work(dtype, B, S, H, P, N, init), _peak("bf16"))
 
 
 def ssd_case(name, dtype, B, S, H, P, N, init=False, timed=False, decay=None):
@@ -619,14 +618,12 @@ def phase_ssd_kernels():
 
 
 def _rglru_bound(B, S, D, init):
-    """Least time for one RG-LRU scan: a and x read and h written once in
-    fp32 (and the initial state read) at the memory rate, or its ~7 fp32
-    operations per element (a*a, 1-, max, sqrt, *x, and the multiply-add)
-    at the fp32 peak."""
-    nbytes = 4 * (3 * B * S * D + (B * D if init else 0))
-    flops = 7.0 * B * S * D
-    t_ops, t_bytes = flops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    """Least time for one RG-LRU scan (``rglru/kernel.py:cost``, the
+    profiler's count too): a and x read and h written once in fp32 (and
+    the initial state read) at the memory rate, or its ~7 fp32 operations
+    per element at the fp32 peak."""
+    from repro_torch.kernels.rglru.kernel import cost
+    return _roofline(*cost(B, S, D, init), _peak("fp32"))
 
 
 def rglru_case(name, B, S, D, init=False, strided=False, decay=None, timed=False):
@@ -856,8 +853,9 @@ def phase_train_reference_check(steps=2, batch=2, seq=24):
           f"training on the card differs from the CPU: {res}")
 
 
-# kernel classes of a profile, by substrings of the kernels' names (the
-# first class that matches takes the kernel)
+# finer kernel classes of a profile than the profiler's op classes, by
+# substrings of the kernels' names (the first class that matches takes the
+# kernel; the rest is "other")
 FORWARD_CLASSES = (("flash_fwd", ("fa_tc_kernel", "fa_kernel<", "fa_split", "fa_decode_combine")),
                    ("ssd", ("ssd_",)), ("rglru", ("rglru_",)),
                    ("matmul_cublas", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
@@ -870,14 +868,19 @@ TRAIN_CLASSES = (("flash_bwd_lse_delta", ("fa_bwd_lse", "fa_bwd_tc_lse")),
                  FORWARD_CLASSES[4])
 
 
-def _device_ms_by_class(kernels, classes, per=1):
-    """Device ms of profiled ``kernels`` by class (``classes``; the rest
-    is "other"), divided by ``per``."""
-    by_class = dict.fromkeys([c for c, _ in classes] + ["other"], 0.0)
+def _device_ms_by_class(kernels, subclasses, per=1):
+    """Device ms of profiled ``kernels``, divided by ``per``: by the
+    profiler's op class (``hloanalysis.op_class``, as
+    ``trace_device_time`` classes a trace) and by the finer
+    ``subclasses``."""
+    from repro_torch.core.hloanalysis import OP_CLASSES, op_class
+    by_class = dict.fromkeys(OP_CLASSES, 0.0)
+    by_sub = dict.fromkeys([c for c, _ in subclasses] + ["other"], 0.0)
     for e in kernels:
-        name = next((c for c, keys in classes if any(key in e.key for key in keys)), "other")
-        by_class[name] += e.self_device_time_total / 1e3 / per
-    return by_class
+        ms = e.self_device_time_total / 1e3 / per
+        by_class[op_class(e.key)] += ms
+        by_sub[next((c for c, keys in subclasses if any(k in e.key for k in keys)), "other")] += ms
+    return by_class, by_sub
 
 
 def _profile_train_step(call):
@@ -894,19 +897,20 @@ def _profile_train_step(call):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    by_class = _device_ms_by_class(kernels, TRAIN_CLASSES)
+    by_class, by_sub = _device_ms_by_class(kernels, TRAIN_CLASSES)
     dev_ms = sum(by_class.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     emit("profile_train_step_full", wall_ms_profiled=wall_ms,
          device_ms=dev_ms if dev_ms else "not measured",
          device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
-         device_ms_by_class=by_class,
+         device_ms_by_class=by_class, device_ms_by_subclass=by_sub,
          share_by_class={k: v / dev_ms for k, v in by_class.items()} if dev_ms else {},
+         share_by_subclass={k: v / dev_ms for k, v in by_sub.items()} if dev_ms else {},
          top_kernels=[dict(name=e.key[:80], calls=e.count, ms=e.self_device_time_total / 1e3)
                       for e in top])
 
 
-def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
+def phase_train_full(profiles, arch="gemma-2b", batch=1, seq=2048):
     """``arch`` trained at its full published width through the suite's
     train step (``jit_donated``: the state updated in place), random
     weights from seed 0.  The main path is one train step, with every
@@ -915,13 +919,18 @@ def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
     ``tc``, and 18 backward launches, all ``tc``.  Then ``harness.measure`` (median of
     5 after a warmup), a profile of one step, four steps of a schedule
     with one warmup step on the same batch (the loss must fall), and the
-    peak device memory."""
+    peak device memory.  The train cell's profile (``profile_cell_full``,
+    its record added to ``profiles``): ``harness.measure(phase_log=...)``
+    over 3 more steps, and the step's op-class cost with the state
+    restored after it (a host copy of the 30 GB of weights and moments)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
     from repro_torch.core.suite import get_benchmark
     from repro_torch.launch import serve
     from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.core.hloanalysis import analyze_step
+    from repro_torch.profiler.attribution import profile_extra
     cfg = get_arch(arch)
     left = _free_card()
     check(left < 1e9, f"{arch} train: {left} bytes still allocated before the phase")
@@ -957,6 +966,18 @@ def phase_train_full(arch="gemma-2b", batch=1, seq=2048):
         args = (fn(*args)[0], args[1])
 
     _profile_train_step(one_step)
+    log, trace, final = [], {}, []
+    t_prof = time.perf_counter()
+    prof_meas = harness.measure(f"{arch}/train/b{batch}/s{seq}/full/jit_donated", recorded,
+                                args, (0,), runs=3, warmup=0, jitted=fn, final_args=final,
+                                phase_log=log, device_trace=trace, device="cuda")
+    args = final[0]
+    cost = analyze_step(fn, args, (0,))
+    _profile_record(f"{arch}/train/b{batch}/s{seq}/full/jit_donated", "train",
+                    profile_extra(log, cost, device_trace=trace, device="cuda"),
+                    meas.median_us, prof_meas.median_us, profiles, compile_us=meas.compile_us,
+                    wall_s=time.perf_counter() - t_prof, arch=arch, batch=batch, seq=seq,
+                    trace=trace, kernel_calls=cost.notes)
     changed = not torch.equal(probe, model.blocks[0].attn["wq"][0, 0])
     all_finite = all(bool(torch.isfinite(x).item()) for x in losses)
     fast = make_train_step(cfg, TrainHyper(warmup_steps=1))
@@ -1068,9 +1089,10 @@ def phase_profile(arch, model, steps=5):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    by_class, by_sub = _device_ms_by_class(kernels, FORWARD_CLASSES, steps)
     emit("profile_decode_full", arch=arch, steps=steps, wall_ms_per_step=wall_ms,
          device_ms_per_step=dev_us / 1e3 if dev_us else "not measured",
-         device_ms_per_step_by_class=_device_ms_by_class(kernels, FORWARD_CLASSES, steps),
+         device_ms_per_step_by_class=by_class, device_ms_per_step_by_subclass=by_sub,
          device_busy_share=dev_us / 1e3 / wall_ms if dev_us else "not measured",
          device_kernel_calls_per_step=sum(e.count for e in kernels) / steps,
          top_kernels=[dict(name=e.key[:80], calls_per_step=e.count / steps,
@@ -1107,14 +1129,150 @@ def _profile_step(arch, task, call):
                               ("rglru_seq", "rglru_seq_kernel"),
                               ("rglru_chunked", "rglru_chunked_kernel"))}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    by_class, by_sub = _device_ms_by_class(kernels, FORWARD_CLASSES)
     emit("profile_step_full", arch=arch, task=task, wall_ms_profiled=wall_ms,
          device_ms=dev_ms if dev_ms else "not measured",
-         device_ms_by_class=_device_ms_by_class(kernels, FORWARD_CLASSES),
+         device_ms_by_class=by_class, device_ms_by_subclass=by_sub,
          device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
          port_kernels_ms={k: v for k, v in ours.items() if v},
          port_kernels_share={k: v / dev_ms for k, v in ours.items() if v and dev_ms},
          top_kernels=[dict(name=e.key[:80], calls=e.count,
                            ms=e.self_device_time_total / 1e3) for e in top])
+
+
+PROF_FRACS = ("prof_frac_compute", "prof_frac_memory", "prof_frac_collective",
+              "prof_frac_dispatch", "prof_frac_idle")
+PROF_KEYS = PROF_FRACS + ("prof_kind", "prof_steps", "prof_dispatch_us_mean",
+                          "prof_device_us_mean", "prof_idle_us", "prof_class_us",
+                          "prof_class_frac", "prof_flops", "prof_bytes", "prof_bound_us",
+                          "prof_util", "prof_device_peak_bytes", "prof_error")
+PROFILE_FRAC_TOL = 1e-6
+# an analytic bound above the measured busy time means a wrong count; 5% is
+# room for L2 hits, which the bytes count cannot see
+PROFILE_UTIL_MAX = 1.05
+# the traced steps' busy time B against a timed sample's wall W: B above W
+# clamps the sample (its host part reads 0); a few percent is the samples'
+# own spread, more means the trace ran other steps than the timed ones
+PROFILE_BUSY_OVER_WALL_MAX = 1.05
+
+
+def _profile_record(name, task, extra, median_us, median_us_profiled, profiles,
+                    compile_us=0.0, wall_s=0.0, record_extra=None, trace=None, **line):
+    """Print one ``profile_cell_full`` line, check the profile, and add the
+    cell's record (the runner's layout, which ``detect`` reads) to
+    ``profiles``.  ``trace`` is the measure's ``device_trace``."""
+    frac_sum = sum(extra[k] for k in PROF_FRACS)
+    trace = trace or {}
+    busy_over_wall = trace.get("busy_over_wall_max", 0.0)
+    emit("profile_cell_full", cell=name, task=task, **line,
+         trace_busy_us=trace.get("busy_us"), clamped_samples=trace.get("clamped_samples"),
+         busy_over_wall_max=busy_over_wall,
+         **{k: extra[k] for k in PROF_KEYS if k in extra}, frac_sum=frac_sum,
+         median_us=median_us, median_us_profiled=median_us_profiled,
+         timeline_head=extra["prof_timeline"][:6])
+    check("prof_error" not in extra, f"{name}: profile failed: {extra.get('prof_error')}")
+    check(abs(frac_sum - 1.0) <= PROFILE_FRAC_TOL, f"{name}: fractions sum to {frac_sum}")
+    check(0.0 < extra["prof_util"] <= PROFILE_UTIL_MAX,
+          f"{name}: prof_util {extra['prof_util']} outside (0, {PROFILE_UTIL_MAX}]")
+    check(extra["prof_class_us"]["attention"] > 0, f"{name}: no attention time")
+    check(busy_over_wall <= PROFILE_BUSY_OVER_WALL_MAX,
+          f"{name}: the traced busy time per step is {busy_over_wall} of a timed sample's "
+          f"wall (limit {PROFILE_BUSY_OVER_WALL_MAX}; {trace.get('clamped_samples')} clamped)")
+    profiles.append({"name": name, "task": task, "status": "ok", "compile_us": compile_us,
+                     "wall_s": wall_s, "extra": {**(record_extra or {}), **extra}})
+
+
+def _profile_step_cell(arch, task, built, batch, profiles, seq=2048):
+    """``task`` at full width through ``Benchmark.make(built=...)``:
+    ``harness.measure`` unprofiled, then profiled (``phase_log``: each
+    sample split by the busy time a kernel trace of 3 more steps
+    measures), each on a fresh ``make``, median of 3 after one warmup;
+    then the step's op-class cost (``analyze_step``) and the profile
+    (``profile_extra``).  Prefill runs as the runner's ``jit`` cell (the
+    cache copied at every call, so every call is a prefill from position
+    0, as ``step_full`` measures it); decode as ``jit_donated`` (the
+    cache updated in place and threaded: its 8 steps from position 2048
+    fit the cache, the cost pass restores it)."""
+    from repro_torch.core import harness
+    from repro_torch.core.suite import get_benchmark
+    from repro_torch.core.hloanalysis import analyze_step
+    from repro_torch.profiler.attribution import profile_extra
+    mode = "jit" if task == "infer_prefill" else "jit_donated"
+    name = f"{arch}/{task}/b{batch}/s{seq}/full/{mode}"
+    medians = []
+    t0 = time.perf_counter()
+    for profiled in (False, True):
+        step, args, mutable = get_benchmark(arch, task).make(batch=batch, seq=seq, built=built)
+        donate = mutable if mode == "jit_donated" else ()
+        fn = harness.prepare(step, donate, mutable=mutable)
+        log, trace, final = [], {}, []
+        meas = harness.measure(name, step, args, donate, runs=3, warmup=1, jitted=fn,
+                               final_args=final, phase_log=log if profiled else None,
+                               device_trace=trace, device=built.model.device)
+        medians.append(meas.median_us)
+        if profiled:
+            cost = analyze_step(fn, final[0], donate)
+            extra = profile_extra(log, cost, device_trace=trace, device=built.model.device)
+        del step, args, fn, final
+    _profile_record(name, task, extra, *medians, profiles, compile_us=meas.compile_us,
+                    wall_s=time.perf_counter() - t0, arch=arch, batch=batch, seq=seq,
+                    trace=trace, kernel_calls=cost.notes)
+
+
+def _profile_serve_cell(arch, built, profiles):
+    """The serve run's trace (8 requests, 4 slots, prompt 128, 16 new) at
+    full width through ``ServeEngine``: a warm replay, an unprofiled one
+    and a profiled one (``run(phase_log=...)``: every decode step split by
+    the busy time a kernel trace of decode steps outside the replay
+    measures; admission and prefill are its idle share), then the decode
+    step's op-class cost (``decode_probe`` + ``analyze_step``)."""
+    from repro_torch.launch.serve import ServeEngine, summarize_metrics
+    from repro_torch.core.hloanalysis import analyze_step
+    from repro_torch.profiler.attribution import profile_extra
+    from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
+    cfg = built.cfg
+    reqs = generate(TraceSpec(profile="uniform", requests=8, prompt_len=128, max_new=16,
+                              seed=0, prompt_profile="fixed"), vocab=cfg.vocab)
+    prefix = cfg.n_prefix if cfg.family == "vlm" else 0
+    engine = ServeEngine(built, slots=4, max_len=cache_len_bound(reqs, prefix=prefix))
+    t0 = time.perf_counter()
+    engine.run(reqs)                     # first calls
+    compile_us = (time.perf_counter() - t0) * 1e6
+    base = summarize_metrics(engine.run(reqs))
+    log, trace = [], {}
+    out = engine.run(reqs, phase_log=log, device_trace=trace)
+    sx = summarize_metrics(out)
+    with engine.decode_probe(reqs) as (step, _):
+        cost = analyze_step(step)
+    extra = profile_extra(log, cost, kind="decode_step", wall_s=out["wall_s"],
+                          device_trace=trace, device=engine.device)
+    check(sx["tokens_digest"] == base["tokens_digest"],
+          f"{arch} serve: the profiled replay's tokens differ")
+    check(extra["prof_steps"] == out["decode_steps"] and extra.get("prof_idle_us", 0) > 0,
+          f"{arch} serve: {extra['prof_steps']} profiled of {out['decode_steps']} decode "
+          f"steps, idle {extra.get('prof_idle_us')}")
+    _profile_record(f"{arch}/serve/b8/s128/full/jit_donated/x4/uniform", "serve", extra,
+                    base["tok_lat_p50"], sx["tok_lat_p50"], profiles, compile_us=compile_us,
+                    wall_s=time.perf_counter() - t0, record_extra=dict(
+                        sx, slots=4, trace="uniform"),
+                    arch=arch, medians_are="tok_lat_p50 (us)", tok_per_s=sx["tok_per_s"],
+                    decode_steps=out["decode_steps"], trace=trace, kernel_calls=cost.notes)
+    del engine
+
+
+def phase_profile_report(profiles):
+    """The profiler's findings over the profiled full-width cells
+    (``detect``, ``build_report``, ``format_table``)."""
+    from repro_torch.profiler import build_report, detect, format_table
+    findings = detect(profiles)
+    report = build_report(profiles, findings, meta={"source": "chip_smoke.py profile_cell_full"})
+    emit("profile_report", cells=report["cells"], cells_profiled=report["cells_profiled"],
+         by_rule=report["by_rule"], by_severity=report["by_severity"],
+         findings=[dict(rule=f.rule, severity=f.severity, cell=f.cell, score=f.score,
+                        summary=f.summary) for f in findings],
+         table=format_table(report).splitlines())
+    check(report["cells_profiled"] == len(profiles),
+          f"profile report: {report['cells_profiled']} of {len(profiles)} cells profiled")
 
 
 def _free_card():
@@ -1189,13 +1347,17 @@ def _param_bytes(cfg):
     return sum(sizes)
 
 
-def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT):
+def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, profile=(),
+                     profiles=None):
     """``arch`` at its full published config (or at ``cfg``, a cut of it),
     random weights from seed 0: its main path (the serve CLI; for a cut
     config the same run through ``ServeEngine``) with every launch count
     set to 0 just before it and read just after, then a decode-step
     profile, the ``infer_prefill`` b1 s2048 and ``infer_decode`` b4 at
     2048 steps, and the peak device memory (under ``memory_limit``).
+    The tasks in ``profile`` (of ``infer_prefill``, ``infer_decode``,
+    ``serve``) are then profiled on the same build, their records added
+    to ``profiles`` (``_profile_step_cell``, ``_profile_serve_cell``).
     ``per_forward`` maps each kernel of the path to its launches (per
     prefill forward, per decode step); every other kernel must not launch.
     Returns the serve run's launch counts and its flash-attention, SSD and
@@ -1298,6 +1460,10 @@ def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT):
         if task == "infer_prefill":
             _profile_step(arch, task, lambda: fn(*args))
         del step, args, out, fn
+        if task in profile:
+            _profile_step_cell(arch, task, built, batch, profiles)
+    if "serve" in profile:
+        _profile_serve_cell(arch, built, profiles)
     peak = torch.cuda.max_memory_allocated()
     emit("memory", arch=arch, n_layers=cfg.n_layers, max_memory_allocated=peak,
          limit=memory_limit,
@@ -1350,13 +1516,17 @@ def main():
         phase_reference_check(arch)
     phase_train_reference_check()
     launches, variants, ssd_variants, rglru_variants = {}, {}, {}, {}
-    for arch, per_forward in (
-            ("gemma-2b", {"flash_attention": (18, 18)}),
-            ("mamba2-2.7b", {"ssd": (64, 0)}),
+    profiles = []     # the profiled full-width cells' records
+    for arch, per_forward, profile in (
+            ("gemma-2b", {"flash_attention": (18, 18)},
+             ("infer_prefill", "infer_decode", "serve")),
+            ("mamba2-2.7b", {"ssd": (64, 0)}, ("infer_prefill",)),
             # 26 recurrent layers (RG-LRU on prefill only), 12 local attention
-            ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)})):
+            ("recurrentgemma-9b", {"rglru": (26, 0), "flash_attention": (12, 12)},
+             ("infer_prefill",))):
         (launches[arch], variants[arch], ssd_variants[arch],
-         rglru_variants[arch]) = phase_full_width(arch, per_forward)
+         rglru_variants[arch]) = phase_full_width(arch, per_forward, profile=profile,
+                                                  profiles=profiles)
     from repro_torch.configs import get_arch
     internlm_24 = dataclasses.replace(get_arch("internlm2-20b"), n_layers=24)
     for arch, per_forward, cfg in (
@@ -1370,7 +1540,8 @@ def main():
             ("whisper-large-v3", {"flash_attention": (96, 64)}, None)):
         limit = _param_bytes(cfg or get_arch(arch)) + MEMORY_HEADROOM
         launches[arch], variants[arch], _, _ = phase_full_width(arch, per_forward, cfg, limit)
-    train_launches, train_bwd_variants = phase_train_full()
+    train_launches, train_bwd_variants = phase_train_full(profiles)
+    phase_profile_report(profiles)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,

@@ -16,8 +16,9 @@ handles, allocator warm-up).  Donation becomes in-place update: a step
 updates its ``mutable`` arguments in place; donated ones are threaded
 through the calls (``_thread``), the others are copied per call so every
 call sees the arguments it was given (what a jitted step without donation
-sees).  ``measure_eager`` and the profiler/tracing hooks wait for the
-compiler modes and ``profiler/`` (ROADMAP Queue 1, slice 7).
+sees).  ``measure`` has the reference's profiler and tracing hooks
+(``phase_log``, ``events``); ``measure_eager`` waits for the compiler
+modes (ROADMAP Queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -70,6 +71,9 @@ def _cuda_devices(x: Any, found: set) -> set:
     if isinstance(x, torch.Tensor):
         if x.is_cuda:
             found.add(x.device)
+    elif isinstance(x, torch.nn.Module):
+        for t in list(x.parameters()) + list(x.buffers()):
+            _cuda_devices(t, found)
     elif isinstance(x, dict):
         for v in x.values():
             _cuda_devices(v, found)
@@ -142,45 +146,104 @@ def measure(name: str, step_fn: Callable, args: Tuple, donate: Tuple[int, ...] =
             *, runs: int = 10, warmup: int = 1,
             hook: Optional[RegressionHook] = None,
             jitted: Optional[Callable] = None,
-            final_args: Optional[list] = None) -> Measurement:
+            final_args: Optional[list] = None,
+            phase_log: Optional[list] = None,
+            events: Optional[list] = None,
+            device_trace: Optional[dict] = None,
+            device: Optional[DeviceLike] = None) -> Measurement:
     """Paper protocol: median-of-N timing of the computation phase.
 
     ``jitted`` lets a caller (the BenchmarkRunner) pass the prepared
     callable (``prepare``); ``final_args`` (a mutable list) receives the
     threaded steady-state arguments.  Device work is waited for with
-    ``torch.cuda.synchronize()`` on every CUDA device the arguments live
-    on, inside each timed sample.
+    ``torch.cuda.synchronize()`` on ``device`` when it is a card and on
+    every card the arguments (modules' parameters among them) live on,
+    inside each timed sample.
+
+    ``phase_log`` (a mutable list) is the profiler hook: it receives one
+    ``(dispatch_s, device_s)`` tuple per *measured* step, and needs
+    ``device``, the device the step runs on, which is traced (nothing is
+    guessed from the arguments: a CPU trace of a step on the card raises).
+    The reference splits a step where the jitted call returns; an eager
+    step's launches overlap its kernels and block on a full launch queue,
+    so its return says little.  Here the device part of a sample of wall
+    W is min(B, W), where B is the device's busy time per step that a
+    kernel trace of ``min(runs, 3)`` more steps measures after the loop,
+    untimed (``profiler.attribution.trace_device_time``, on the CPU the
+    aten ops' busy time); the dispatch part, W - min(B, W), is host time the device
+    did not hide.  ``device_trace`` (a dict) receives the trace's
+    ``busy_us``, ``class_us`` (busy us per op class), ``steps`` and its
+    clamped samples (``trace_phases``), or its ``error``.  The traced
+    steps thread the donated state on: a profiled cell's ``final_args``
+    are ``min(runs, 3)`` steps further on than an unprofiled one's
+    (``device_bytes_delta`` is taken before the trace).  Without a log
+    nothing is traced and the timed loop is the unprofiled one.
+
+    ``events`` (a mutable list) is the tracing hook: it receives one
+    ``(phase, wall_t0, wall_t1)`` tuple per protocol phase — "compile"
+    (the first call + its synchronize), "warm" (the warmup prefix of the
+    loop) and "measure" (the timed iterations).
     """
+    if phase_log is not None and device is None:
+        raise ValueError("measure(phase_log=...) needs device=: the device the step "
+                         "runs on, which the profile traces")
     devices = _cuda_devices(args, set())
+    if device is not None:
+        device = resolve_device(device)
+        if device.type == "cuda":
+            devices.add(device)
     gc.collect()
     _synchronize(devices)
     dev0 = _device_bytes(devices)
     if jitted is None:
         jitted = prepare(step_fn, donate)
+    tw = time.time() if events is not None else 0.0
     t0 = time.perf_counter()
     out = jitted(*args)
     _synchronize(devices)
     compile_us = (time.perf_counter() - t0) * 1e6
     cur_args = _thread(out, args, donate)
+    if events is not None:
+        t_phase = time.time()
+        events.append(("compile", tw, t_phase))
 
     tracemalloc.start()
     times = []
+    walls = []
     for i in range(warmup + runs):
+        if events is not None and i == warmup:
+            now = time.time()
+            events.append(("warm", t_phase, now))
+            t_phase = now
         t0 = time.perf_counter()
         out = jitted(*cur_args)
         _synchronize(devices)
-        dt = (time.perf_counter() - t0) * 1e6
+        t_done = time.perf_counter()
+        dt = (t_done - t0) * 1e6
         if hook is not None:
             hook.fire()
             dt += (hook.slowdown_s * 1e6)
         if i >= warmup:
             times.append(dt)
+            if phase_log is not None:
+                walls.append(t_done - t0)
         cur_args = _thread(out, cur_args, donate)
+    if events is not None:
+        events.append(("measure", t_phase, time.time()))
     _, host_peak = tracemalloc.get_traced_memory()
     tracemalloc.stop()
+    dev1 = _device_bytes(devices)
+    if phase_log is not None:
+        from repro_torch.profiler.attribution import trace_phases
+
+        def one_step():
+            nonlocal cur_args
+            cur_args = _thread(jitted(*cur_args), cur_args, donate)
+
+        trace_phases(one_step, max(1, min(runs, 3)), walls, phase_log, device_trace,
+                     device)
     if final_args is not None:
         final_args.append(cur_args)
-    dev1 = _device_bytes(devices)
     arr = np.array(times)
     return Measurement(
         name=name,

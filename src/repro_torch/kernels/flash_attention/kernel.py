@@ -75,6 +75,50 @@ def plan(B: int, Sq: int, Sk: int, H: int, K: int, D: int,
     return "simt", 1
 
 
+def visible(B: int, Sq: int, Sk: int, *, mask_type: str, window: int,
+            prefix_len: int, q_offset: RowsArg, kv_len) -> torch.Tensor:
+    """(B, Sq, Sk) bool: which keys each query of each row attends to
+    (``kv_len`` None: all Sk), on the device of a per-row argument, else
+    on the CPU."""
+    from repro_torch.kernels.flash_attention.ref import allowed_mask
+    dev = next((x.device for x in (q_offset, kv_len) if isinstance(x, torch.Tensor)),
+               torch.device("cpu"))
+    qo = torch.as_tensor(q_offset, device=dev).reshape(-1)
+    q_pos = qo[:, None] + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    vis = allowed_mask(q_pos, k_pos, mask_type, window, prefix_len).expand(B, Sq, Sk)
+    if kv_len is not None:
+        lim = torch.as_tensor(kv_len, device=dev).reshape(-1)[:, None, None]
+        vis = vis & (k_pos < lim)
+    return vis
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, K: int, D: int, dtype: torch.dtype, *,
+         mask_type: str = "causal", window: int = 0, prefix_len: int = 0,
+         q_offset: RowsArg = 0, kv_len=None) -> Tuple[float, float]:
+    """(flops, bytes) of one forward call, whatever computes it: 4 D
+    flops a visible (query, key) pair and query head (q·kᵀ and p·v), and
+    the bytes of q and the output and of the keys and values some query
+    of the row sees, each read or written once."""
+    vis = visible(B, Sq, Sk, mask_type=mask_type, window=window,
+                  prefix_len=prefix_len, q_offset=q_offset, kv_len=kv_len)
+    flops = 4.0 * D * H * int(vis.sum().item())
+    kv_rows = int(vis.any(dim=1).sum().item())
+    return flops, float(dtype.itemsize * (2 * B * Sq * H * D + 2 * kv_rows * K * D))
+
+
+def cost_bwd(B: int, Sq: int, Sk: int, H: int, K: int, D: int, dtype: torch.dtype, *,
+             mask_type: str = "causal", window: int = 0, prefix_len: int = 0,
+             q_offset: int = 0, kv_len=None) -> Tuple[float, float]:
+    """(flops, bytes) of one backward call: five products of 2 D flops a
+    visible pair and query head (s, dv, dp, dq, dk), and q, o, do, dq and
+    k, v, dk, dv each read or written once."""
+    vis = visible(B, Sq, Sk, mask_type=mask_type, window=window,
+                  prefix_len=prefix_len, q_offset=q_offset, kv_len=kv_len)
+    flops = 10.0 * D * H * int(vis.sum().item())
+    return flops, float(dtype.itemsize * 4 * D * (B * Sq * H + B * Sk * K))
+
+
 def tc_warpgroups(B: int, Sq: int, H: int, K: int) -> int:
     """Warpgroups (64 rows each) of a ``tc`` block: two, unless
     128-row blocks would fill fewer than 132 SMs."""

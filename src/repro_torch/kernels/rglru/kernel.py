@@ -52,6 +52,14 @@ def plan(B: int, S: int, D: int) -> Tuple[str, int]:
     return "chunked", CHUNK
 
 
+def cost(B: int, S: int, D: int, init: bool) -> Tuple[float, float]:
+    """(flops, bytes) of one call, whatever computes it: ~7 fp32
+    operations an element (a·a, 1 −, max, sqrt, ·x, and the multiply-add),
+    and a and x read and h written once in fp32 (and the initial state
+    read when ``init``)."""
+    return 7.0 * B * S * D, float(4 * (3 * B * S * D + (B * D if init else 0)))
+
+
 def scratch_words(B: int, S: int, D: int) -> int:
     """The ``chunked`` variant's scratch in 64-bit words: the ticket
     counter, then per (row, chunk, lane) two words, each a published fp32

@@ -56,6 +56,27 @@ def plan(B: int, S: int, H: int, P: int, N: int,
     return "tc", hpb
 
 
+#: the chunk length at which ``cost`` counts the chunked algorithm's flops
+#: (the reference configs' ``ssm_chunk``), whatever chunk computes them
+WORK_CHUNK = 256
+
+
+def cost(B: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,
+         init: bool) -> Tuple[float, float]:
+    """(flops, bytes) of one call, whatever computes it: the chunked
+    algorithm's flops at ``WORK_CHUNK`` (C·Bᵀ once per row and chunk,
+    shared by the heads; per head the masked product with x and the
+    state terms), and the bytes of x, dt, A, B, C (and the initial state
+    when ``init``) read once and y and the final state written once."""
+    flops = 0.0
+    for s0 in range(0, S, WORK_CHUNK):
+        n = min(WORK_CHUNK, S - s0)
+        flops += B * (2.0 * n * n * N + H * (2.0 * n * n * P + 4.0 * n * N * P))
+    nbytes = (dtype.itemsize * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
+              + 4 * B * H * P * N * (2 if init else 1))
+    return flops, float(nbytes)
+
+
 def scratch_shapes(B: int, S: int, H: int, P: int, N: int):
     """The ``tc`` variant's scratch: chunk states (B, n_chunks, H, P, N)
     fp32, the incoming states h_in of the same shape in bf16, and cum_last

@@ -26,8 +26,11 @@ engine then keeps.  PyTorch runs eagerly, so nothing is compiled: the
 reference's compiled-shape bookkeeping (``admit_shapes``) is kept as the
 record of which (rows, padded length) prefill shapes ran.
 
-The reference's fleet-metrics calls wait for ``fleet/`` (ROADMAP Queue 1,
-slice 7), its profiler and tracing hooks too.
+``run(..., phase_log=...)`` is the reference's profiler hook (one
+``(dispatch_s, device_s)`` split per decode step; the device part from a
+kernel trace of decode steps outside the replay, ``decode_probe``).  The
+reference's fleet-metrics calls and its tracing hook (``span_log``) wait
+for ``fleet/`` and ``telemetry/`` (ROADMAP Queue 1, item 12).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --requests 16 --slots 4 --prompt-len 32 --trace bursty
@@ -35,6 +38,7 @@ slice 7), its profiler and tracing hooks too.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -198,7 +202,37 @@ class ServeEngine:
         logits, self.cache = self.model.decode_step(toks, cache)
         return logits
 
-    def run(self, requests: List[Request], *, hook=None) -> Dict[str, Any]:
+    @contextlib.contextmanager
+    def decode_probe(self, requests: List[Request]):
+        """A decode step of ``requests``' replay, for the profiler: resets
+        the engine, admits the trace's first wave (its first ``slots``
+        requests by arrival, untimed) and yields ``(step, room)``:
+        ``step()`` runs one decode step over every slot and its argmax
+        readback, as ``run()`` does, and may be called ``room`` times
+        before an admitted row's cache is full.  On exit the engine is
+        reset, its record of admitted shapes as it was; the requests are
+        not touched."""
+        shapes = set(self._admit_shapes)
+        self._reset()
+        try:
+            first = sorted(requests, key=lambda r: (r.arrival_step, r.rid))[: self.slots]
+            pairs = list(enumerate(first))
+            next_tok = np.zeros(self.slots, np.int32)
+            next_tok[: len(pairs)] = self._admit_wave(pairs)
+            toks = torch.from_numpy(next_tok[:, None].copy()).to(self.device)
+            room = int(min(self.max_len - self.slot_pos[s] for s, _ in pairs))
+
+            def step():
+                self._decode(toks)[:, 0].argmax(dim=-1).cpu()
+
+            yield step, room
+        finally:
+            self._admit_shapes = shapes
+            self._reset()
+
+    def run(self, requests: List[Request], *, hook=None,
+            phase_log: Optional[list] = None,
+            device_trace: Optional[dict] = None) -> Dict[str, Any]:
         """Replay a trace; returns throughput + raw latency samples.
 
         Admission is driven by the decode-step counter (virtual time): a
@@ -209,6 +243,15 @@ class ServeEngine:
         device work they time has finished (the argmax readback waits for
         it).  ``hook`` is an optional ``RegressionHook`` fired once per
         decode step.
+
+        ``phase_log`` is the profiler hook: one ``(dispatch_s, device_s)``
+        tuple per batched decode step, split as ``harness.measure`` splits
+        a step — the device part min(B, W) of the step's wall W, B the
+        busy time per decode step that a kernel trace of up to 3 decode
+        steps from ``decode_probe`` measures after the replay, untimed
+        (its busy and class times, or its error, go into
+        ``device_trace``).  Admission and prefill stay outside the decode
+        steps.  Without a log nothing is traced.
         """
         self._reset()
         shapes0 = len(self._admit_shapes)
@@ -223,6 +266,7 @@ class ServeEngine:
         ttft_s: List[float] = []
         tok_lat_s: List[float] = []
         qdepth: List[int] = []
+        step_walls: List[float] = []
         t0 = time.perf_counter()
         while done_count < total:
             now = time.perf_counter()
@@ -274,6 +318,8 @@ class ServeEngine:
             toks = torch.from_numpy(next_tok[:, None].copy()).to(self.device)
             logits = self._decode(toks)
             nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+            if phase_log is not None:
+                step_walls.append(time.perf_counter() - ts)
             if hook is not None:
                 hook.fire()   # inside the timed sample, like harness.measure
             dt = time.perf_counter() - ts
@@ -295,20 +341,26 @@ class ServeEngine:
                     done_count += 1
         wall = time.perf_counter() - t0
         ab = self._admit_batches
-        return {"requests": total, "decode_steps": self.steps,
-                "tokens": tokens_out, "wall_s": wall,
-                "tok_per_s": tokens_out / wall if wall else 0.0,
-                "ttft_s": ttft_s, "tok_lat_s": tok_lat_s,
-                "queue_depth_mean": (sum(qdepth) / len(qdepth)) if qdepth else 0.0,
-                "queue_depth_max": max(qdepth) if qdepth else 0,
-                "admission": self.admission,
-                "admit_calls": self._admit_calls,
-                "admit_batch_mean": (sum(ab) / len(ab)) if ab else 0.0,
-                "admit_batch_max": max(ab) if ab else 0,
-                "admit_shapes": sorted(list(s) for s in self._admit_shapes),
-                # prefill shapes first run during this replay
-                "admit_new_shapes": len(self._admit_shapes) - shapes0,
-                "tokens_by_rid": tokens_by_rid(requests)}
+        out = {"requests": total, "decode_steps": self.steps,
+               "tokens": tokens_out, "wall_s": wall,
+               "tok_per_s": tokens_out / wall if wall else 0.0,
+               "ttft_s": ttft_s, "tok_lat_s": tok_lat_s,
+               "queue_depth_mean": (sum(qdepth) / len(qdepth)) if qdepth else 0.0,
+               "queue_depth_max": max(qdepth) if qdepth else 0,
+               "admission": self.admission,
+               "admit_calls": self._admit_calls,
+               "admit_batch_mean": (sum(ab) / len(ab)) if ab else 0.0,
+               "admit_batch_max": max(ab) if ab else 0,
+               "admit_shapes": sorted(list(s) for s in self._admit_shapes),
+               # prefill shapes first run during this replay
+               "admit_new_shapes": len(self._admit_shapes) - shapes0,
+               "tokens_by_rid": tokens_by_rid(requests)}
+        if phase_log is not None:
+            from repro_torch.profiler.attribution import trace_phases
+            with self.decode_probe(requests) as (step, room):
+                trace_phases(step, min(3, room), step_walls, phase_log, device_trace,
+                             self.device)
+        return out
 
     def capture(self, requests: List[Request], *, seed: int = 0,
                 source: str = "live") -> TraceSpec:

@@ -35,6 +35,62 @@ request count; ``extra`` holds ``ttft_p50|p95|p99`` and
 ``admit_calls``, ``admit_batch_mean|max`` and ``admit_shapes`` (the
 meanings are documented in ``repro.runner.results``).
 
+Profiled cells (``run(..., profile=True)``; ``repro_torch.profiler``)
+additionally carry the reference's ``prof_*`` keys (still schema v1), with
+the same names, the same set for the same ``Scenario``, and these
+meanings.  The trace runs 3 more steps (at most ``runs``) after the timed
+loop, untimed: a profiled step cell's threaded state (a donated cache or
+train state) is that many steps further on than an unprofiled one's.
+
+    extra["prof_kind"]     str    "step" (train/infer cells: one sample per
+                                  measured iteration) | "decode_step"
+                                  (serve: one per batched decode step)
+    extra["prof_steps"]    int    profiled samples
+    extra["prof_timeline"] list   [dispatch_us, device_us] per sample,
+                                  capped at profiler.TIMELINE_CAP (128)
+    extra["prof_device_us_mean"]  float  the device's busy time per step
+                                  (at most the sample's wall), from a
+                                  kernel trace (``torch.profiler``) of
+                                  extra, untimed steps: on the card the
+                                  kernels' time, on the CPU the aten ops'
+    extra["prof_dispatch_us_mean"] float host time the device did not hide:
+                                  the sample's wall less its device part
+                                  (eager launches overlap the kernels, so
+                                  the reference's call-return split does
+                                  not carry over)
+    extra["prof_idle_us"]  float  serve only: measured replay wall outside
+                                  decode steps (admission, prefill, queue)
+    extra["prof_frac_compute"|"prof_frac_memory"|"prof_frac_collective"
+         |"prof_frac_dispatch"|"prof_frac_idle"]
+                           float  measured time decomposition; the five
+                                  fractions sum to 1.0 per cell (device
+                                  time split over op classes by the
+                                  trace's measured class times, then into
+                                  compute vs memory per class by its
+                                  flops : bytes roofline terms; device time
+                                  the costs can't explain lands in idle)
+    extra["prof_class_us"|"prof_class_frac"]   dict   measured device time
+                                  per op class (hloanalysis.OP_CLASSES:
+                                  matmul/attention/collective/elementwise/
+                                  other; attention is the port's kernels),
+                                  us and fraction of device time
+    extra["prof_flops"|"prof_bytes"|"prof_collective_bytes"]   the eager
+                                  step's counted work (``analyze_step``)
+    extra["prof_bound_us"] float  the step's roofline bound on the H100
+                                  (``core.hardware.DEFAULT_HW``)
+    extra["prof_util"]     float  bound / measured device time per step
+    extra["prof_device_peak_bytes"|"prof_device_bytes_in_use"]   the
+                                  card's allocator stats (absent on CPU)
+    extra["prof_error"]    str    the trace or the cost pass failed; the
+                                  cell's status stays "ok"
+    extra["prof_clamped_samples"|"prof_busy_over_wall_max"]   port only,
+                                  present when the trace's busy time per
+                                  step B exceeded a sample's wall W: how
+                                  many samples were clamped (their device
+                                  part is W, their host part 0) and the
+                                  largest B / W, a sign that the traced
+                                  steps ran longer than the timed ones
+
 ``ResultStore`` — an append-only JSONL run log plus an atomically
 rewritten latest-pointer JSON (a directory, or a ``*.json`` path with the
 log beside it), safe for concurrent appenders.

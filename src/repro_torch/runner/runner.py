@@ -5,17 +5,21 @@ subset).
 * reuses expensive state across scenarios: arch builds (config + model on
   the device) per (arch, dtype, mode-overrides), prepared steps with their
   threaded arguments per scenario, serve engines per (build, mode,
-  max_len, admission);
+  max_len, admission), and profiled cells' op-class costs per scenario
+  (and per serve engine);
 * emits one schema-v1 ``RunResult`` per execution into a ``ResultStore``,
-  stamped ``extra["prov_framework"]="torch"`` and ``extra["prov_device"]``.
+  stamped ``extra["prov_framework"]="torch"`` and ``extra["prov_device"]``;
+* profiles a cell when asked (``profile=True`` on the runner, per
+  ``run`` or per ``run_matrix``): the measured phase timeline and its
+  op-class attribution under ``extra["prof_*"]`` (``repro_torch.profiler``).
 
-Runs ``infer_prefill``, ``infer_decode`` and ``serve`` cells in modes
-``jit`` and ``jit_donated`` (see ``scenario.py`` for the mapping); other
-tasks and modes come back as error records naming the ROADMAP item.  Not
-ported yet, and raising ``NotImplementedError`` when asked for: the pool
-(``jobs``), cluster dispatch and subprocess isolation (ROADMAP Queue 1,
-slice 6); profiling, span tracing, coverage, kernel micro-bench cells,
-loadgen and the dry-run tier (slice 7).
+Runs ``train``, ``infer_prefill``, ``infer_decode`` and ``serve`` cells in
+modes ``jit`` and ``jit_donated`` (see ``scenario.py`` for the mapping);
+other tasks and modes come back as error records naming the ROADMAP item.
+Not ported yet, and raising ``NotImplementedError`` when asked for: the
+pool (``jobs``), cluster dispatch and subprocess isolation (ROADMAP Queue
+1, item 9); span tracing (item 12), coverage, kernel micro-bench cells,
+loadgen (item 13) and the dry-run tier (item 14).
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core.harness import RegressionHook, measure, prepare
+from repro_torch.core.hloanalysis import HloCost, analyze_step
 from repro_torch.core.suite import Built, build_arch, get_benchmark
 from repro_torch.device import DeviceLike, device_name, resolve_device
+from repro_torch.profiler.attribution import profile_extra
 from repro_torch.runner.latency import percentile
 from repro_torch.runner.results import ResultStore, RunResult
 from repro_torch.runner.scenario import PORTED_MODES, Scenario, ScenarioMatrix
@@ -33,14 +39,15 @@ from repro_torch.runner.traces import (cache_len_bound, capture_spec,
                                        spec_for_scenario)
 from repro_torch.runner.traces import generate as generate_trace
 
-_DISPATCH = "(ROADMAP Queue 1, slice 6: dispatch)"
+_DISPATCH = "(ROADMAP Queue 1, slice 6, item 9: dispatch)"
 _MEASURE = "(ROADMAP Queue 1, slice 7: measurement subsystems)"
 
 
 def _unported(**flags) -> None:
     """Raise for the first runner feature asked for that is not ported."""
     where = {"isolate": _DISPATCH, "jobs": _DISPATCH, "cluster": _DISPATCH,
-             "profile": _MEASURE, "tracer": _MEASURE, "coverage": _MEASURE}
+             "tracer": "(ROADMAP Queue 1, slice 7, item 12: span tracing)",
+             "coverage": "(ROADMAP Queue 1, slice 7, item 13: coverage)"}
     for name, asked in flags.items():
         if asked:
             raise NotImplementedError(f"BenchmarkRunner {name}= is not "
@@ -73,8 +80,7 @@ class BenchmarkRunner:
                  profile: bool = False, tracer: Any = None,
                  coverage: bool = False):
         _unported(isolate=isolate, jobs=jobs > 1, cluster=cluster,
-                  profile=profile, tracer=tracer is not None,
-                  coverage=coverage)
+                  tracer=tracer is not None, coverage=coverage)
         self.device = resolve_device(device)
         self.store = store
         self.runs = runs
@@ -83,10 +89,15 @@ class BenchmarkRunner:
         # above steady state (allocator growth, library handles)
         self.compile_warmup = compile_warmup
         self.reuse = reuse
+        # measured profiling (repro_torch/profiler/): per-step phase
+        # timelines + op-class attribution under extra["prof_*"]; per-call
+        # override via run(..., profile=...)
+        self.profile = profile
         self.stats = RunnerStats()
         self._built: Dict[Tuple, Built] = {}
         self._execs: Dict[Scenario, _ExecEntry] = {}
         self._serve_engines: Dict[Tuple, Any] = {}
+        self._prof_costs: Dict[Any, HloCost] = {}
 
     # ---- build / executable caches -------------------------------------
 
@@ -139,14 +150,21 @@ class BenchmarkRunner:
 
         ``task="serve"`` cells run the continuous-batching engine over the
         scenario's trace instead of the ``measure()`` step protocol.
+
+        ``profile`` (default: the runner's ``profile`` setting) splits each
+        measured step into exposed host time and the device's busy time
+        (``harness.measure(phase_log=...)``), and attributes the device
+        time over op classes (``repro_torch.profiler``); the profile lands
+        under ``extra["prof_*"]``.  Its trace and cost pass run outside
+        the timed loop.
         """
-        _unported(profile=profile)
+        prof = self.profile if profile is None else profile
         if scenario.task in ("loadgen", "kernel"):
             raise NotImplementedError(f"task={scenario.task!r} is not ported "
                                       f"yet {_MEASURE}")
         if scenario.task == "serve":
             return self._run_serve(scenario, hook=hook, record=record,
-                                   extra=extra)
+                                   profile=prof, extra=extra)
         t0 = time.perf_counter()
         self.stats.scenarios_run += 1
         try:
@@ -155,9 +173,12 @@ class BenchmarkRunner:
             if not cache.get("executable_reused"):
                 wu += self.compile_warmup
             final_args: List[Tuple] = []
+            phase_log = [] if prof else None
+            trace: Dict[str, Any] = {}
             m = measure(scenario.name, entry.step, entry.args, entry.donate,
                         runs=runs or self.runs, warmup=wu, hook=hook,
-                        jitted=entry.jitted, final_args=final_args)
+                        jitted=entry.jitted, final_args=final_args,
+                        phase_log=phase_log, device_trace=trace, device=self.device)
             if self.reuse and final_args:
                 # the donated cache was updated in place and threaded: keep
                 # the threaded args for the next measurement
@@ -166,6 +187,10 @@ class BenchmarkRunner:
                 scenario, m, wall_s=time.perf_counter() - t0, cache=cache)
             if cache.get("executable_reused"):
                 rr.compile_us = 0.0
+            if prof:
+                rr.extra.update(self._profile_extra(
+                    scenario, phase_log, trace,
+                    lambda: analyze_step(entry.jitted, final_args[0], entry.donate)))
         except Exception as e:  # noqa: BLE001 — fault containment per cell
             self.stats.errors += 1
             # a failed measure may have left a half-updated cache: evict
@@ -173,6 +198,32 @@ class BenchmarkRunner:
             rr = RunResult.from_error(scenario, f"{type(e).__name__}: {e}",
                                       wall_s=time.perf_counter() - t0)
         return self._finalize(rr, extra, record)
+
+    # ---- measured profiling ---------------------------------------------
+
+    def _profile_extra(self, cost_key: Any, phase_log, trace: Dict[str, Any],
+                       analyze: Callable[[], HloCost], *, kind: str = "step",
+                       wall_s: float = 0.0) -> Dict[str, Any]:
+        """The ``extra["prof_*"]`` payload for one profiled execution:
+        timeline from the measured ``phase_log`` plus op-class attribution
+        from the step's (cached) cost and the trace's class times.  A
+        failed trace or cost pass degrades to ``prof_error`` — profiling
+        must never turn a good measurement into an error record."""
+        error = None
+        cost = self._prof_costs.get(cost_key)
+        if cost is None:
+            try:
+                cost = analyze()
+                if self.reuse:
+                    self._prof_costs[cost_key] = cost
+            except Exception as e:  # noqa: BLE001 — profile degrades, cell stays ok
+                cost = HloCost()
+                error = f"{type(e).__name__}: {e}"
+        extra = profile_extra(phase_log, cost, kind=kind, wall_s=wall_s,
+                              device_trace=trace, device=self.device)
+        if error:
+            extra["prof_error"] = error
+        return extra
 
     def _finalize(self, rr: RunResult, extra: Optional[Dict[str, Any]],
                   record: bool) -> RunResult:
@@ -206,13 +257,19 @@ class BenchmarkRunner:
 
     def _run_serve(self, scenario: Scenario, *,
                    hook: Optional[RegressionHook] = None,
-                   record: bool = True,
+                   record: bool = True, profile: bool = False,
                    extra: Optional[Dict[str, Any]] = None) -> RunResult:
         """One serving cell: regenerate the scenario's trace, replay it
         through the (cached) engine, and fold the latency distribution into
         a RunResult — ``median_us``/``mean_us``/``p10_us``/``p90_us`` are
         per-token decode latencies; TTFT/per-token p50/p95/p99 and
-        throughput land under the well-known ``extra`` keys."""
+        throughput land under the well-known ``extra`` keys.
+
+        ``profile=True`` splits every decode step of the measured replay
+        (``ServeEngine.run(phase_log=...)``) and attributes it over the
+        decode step's op classes; replay wall time outside decode steps
+        (admission, prefill, queue management) is the profile's idle
+        share."""
         from repro_torch.launch.serve import summarize_metrics
         t0 = time.perf_counter()
         self.stats.scenarios_run += 1
@@ -242,7 +299,10 @@ class BenchmarkRunner:
                 tc = time.perf_counter()
                 engine.run(reqs)
                 compile_us = (time.perf_counter() - tc) * 1e6
-            out = engine.run(reqs, hook=hook)
+            phase_log = [] if profile else None
+            trace: Dict[str, Any] = {}
+            out = engine.run(reqs, hook=hook, phase_log=phase_log,
+                             device_trace=trace)
             sx = summarize_metrics(out)
             plens = sorted(len(r.prompt) for r in reqs)
             sx.update(trace=scenario.trace, slots=scenario.slots,
@@ -251,6 +311,11 @@ class BenchmarkRunner:
                       prompt_len_p95=percentile(plens, 95))
             sx["capture"] = dataclasses.asdict(capture_spec(
                 reqs, seed=spec.seed, source=f"capture:{scenario.name}"))
+            if profile:
+                sx.update(self._profile_extra(
+                    ("serve-cost",) + key, phase_log, trace,
+                    lambda: _decode_cost(engine, reqs), kind="decode_step",
+                    wall_s=out["wall_s"]))
             lats = out["tok_lat_s"] or out["ttft_s"]
             rr = RunResult(
                 name=scenario.name, bench=scenario.bench, arch=scenario.arch,
@@ -280,14 +345,23 @@ class BenchmarkRunner:
                    cluster: Optional[str] = None,
                    profile: Optional[bool] = None) -> List[RunResult]:
         """Run every scenario of the matrix in order, in this process; hooks
-        are keyed by benchmark name ("arch/task") or full scenario name."""
-        _unported(jobs=(jobs or 0) > 1, cluster=cluster, profile=profile)
+        are keyed by benchmark name ("arch/task") or full scenario name.
+        ``profile`` (default: the runner's setting) profiles every cell."""
+        _unported(jobs=(jobs or 0) > 1, cluster=cluster)
         out = []
         for sc in matrix.expand():
             hook = (hooks or {}).get(sc.name) or (hooks or {}).get(sc.bench)
-            out.append(self.run(sc, hook=hook, runs=runs, warmup=warmup))
+            out.append(self.run(sc, hook=hook, runs=runs, warmup=warmup,
+                                profile=profile))
         return out
 
     def run_dryrun(self, *args, **kwargs):
         raise NotImplementedError("the derived (dry-run) tier is not ported "
                                   "yet (ROADMAP Queue 1, slice 7)")
+
+
+def _decode_cost(engine: Any, reqs: List[Any]) -> HloCost:
+    """The op-class cost of one of the engine's decode steps over the
+    trace's first wave (``ServeEngine.decode_probe``)."""
+    with engine.decode_probe(reqs) as (step, _):
+        return analyze_step(step)

@@ -1,7 +1,7 @@
 """The port imports neither ``jax`` nor anything of ``repro``: in a fresh
 interpreter that refuses both, every module of ``repro_torch`` imports
-(the training modules among them) and a tiny prefill and a tiny train
-step run on the CPU."""
+(the training and profiler modules among them) and a tiny prefill, a
+tiny train step and a profiled runner cell run on the CPU."""
 import os
 import subprocess
 import sys
@@ -30,11 +30,18 @@ logits, cache = model.prefill({"tokens": torch.zeros(1, 4, dtype=torch.int32)},
                               model.init_cache(1, 8))
 assert logits.shape == (1, 1, built.cfg.vocab)
 assert {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
-        "repro_torch.launch.steps"} <= set(names)
+        "repro_torch.launch.steps", "repro_torch.profiler.timeline",
+        "repro_torch.profiler.attribution", "repro_torch.profiler.detectors",
+        "repro_torch.profiler.report", "repro_torch.core.hardware",
+        "repro_torch.core.hloanalysis"} <= set(names)
 from repro_torch.core.suite import get_benchmark
 step, (state, batch), _ = get_benchmark("gemma-2b", "train").make(batch=1, seq=4, built=built)
 state, metrics = step(state, batch)
 assert torch.isfinite(metrics["loss"]) and int(state[1].step) == 1
+from repro_torch.runner import BenchmarkRunner, Scenario
+rr = BenchmarkRunner(device="cpu", runs=1, warmup=0, compile_warmup=0, profile=True).run(
+    Scenario(arch="gemma-2b", task="infer_prefill", batch=1, seq=4))
+assert rr.status == "ok" and rr.extra["prof_frac_dispatch"] >= 0, rr.error
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("modules", len(names))
 '''

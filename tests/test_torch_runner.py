@@ -50,7 +50,7 @@ def test_unported_tasks_and_modes_come_back_as_error_records(runner):
 
 
 @pytest.mark.parametrize("option", [dict(isolate=True), dict(jobs=2),
-                                    dict(cluster="local:2"), dict(profile=True),
+                                    dict(cluster="local:2"), dict(jobs=4, profile=True),
                                     dict(tracer=object()), dict(coverage=True)])
 def test_unported_runner_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
