@@ -44,6 +44,13 @@ device did not hide and the device's busy time from a kernel trace, that
 time by op class, the step's roofline bound over it (fractions summing to
 1 within 1e-6, 0 < ``prof_util`` <= 1.05, attention time > 0, no
 ``prof_error``), and ranks the findings (``profile_report``).
+Dispatch (``dispatch``, right after the runner's reduced cells): a matrix
+of the runner's gemma-2b, mamba2-2.7b and recurrentgemma-9b cells runs
+serially, across two shard workers (``jobs=2``), across two ``local:2``
+cluster workers and, one cell, in its own subprocess, every worker on the
+card; names, statuses and serve tokens must agree, a profiled decode cell
+must carry the same ``prof_*`` keys serially and from a worker, with
+attention time on the card, and no worker may outlive ``close()``.
 One JSON line per phase; the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -748,6 +755,106 @@ def phase_runner():
                  compile_us=rr.compile_us, error=rr.error,
                  prov_device=rr.extra.get("prov_device"))
             check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
+
+
+# the runner's reduced cells that dispatch carries: gemma-2b prefill, decode
+# and four serve cells, four serve cells each of mamba2-2.7b and
+# recurrentgemma-9b (K1, K2 and K3 on the card)
+DISPATCH_MATRIX = dict(archs=("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b"),
+                       tasks=("infer_prefill", "infer_decode", "serve"), batches=(4,),
+                       seqs=(32,), slots=(2, 3), traces=("uniform", "bursty"),
+                       exclude=(r"^(mamba2-2\.7b|recurrentgemma-9b)/infer_",))
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_dispatch(smi):
+    """One matrix of the runner's cells run four ways on the card: serially,
+    across two shard workers (``jobs=2``, fence held), across two
+    ``local:2`` cluster workers, and one serve cell in its own subprocess
+    (``isolate=True``).  Every cell must be ok in every way, with names in
+    matrix order and serve tokens byte-identical; a profiled gemma-2b
+    decode cell must carry the same ``prof_*`` keys serially and from a
+    worker, with attention time on the card; no worker may outlive
+    ``close()``.  Each cell's line reports its median serially and under
+    ``jobs=2`` and their ratio (reported, not gated)."""
+    from repro_torch.runner import BenchmarkRunner, ScenarioMatrix
+    matrix = ScenarioMatrix(**DISPATCH_MATRIX)
+    scenarios = matrix.expand()
+    names = [sc.name for sc in scenarios]
+    t0 = time.perf_counter()
+    runner = BenchmarkRunner(device="cuda")
+    ways, seconds, pids = {}, {}, set()
+    try:
+        for way, kw in (("serial", {}), ("jobs=2", dict(jobs=2)),
+                        ("local:2", dict(cluster="local:2"))):
+            tw = time.perf_counter()
+            ways[way] = runner.run_matrix(matrix, **kw)
+            seconds[way] = round(time.perf_counter() - tw, 3)
+            pids.update(runner.worker_pids())
+        iso_sc = next(sc for sc in scenarios if sc.task == "serve")
+        tw = time.perf_counter()
+        iso = BenchmarkRunner(device="cuda", isolate=True).run(iso_sc)
+        seconds["isolate"] = round(time.perf_counter() - tw, 3)
+        dec = next(sc for sc in scenarios if sc.task == "infer_decode")
+        prof_serial = runner.run(dec, profile=True, record=False)
+        (prof_worker,) = runner.run_matrix(ScenarioMatrix(
+            archs=(dec.arch,), tasks=(dec.task,), batches=(dec.batch,), seqs=(dec.seq,)),
+            jobs=2, profile=True)
+        pids.update(runner.worker_pids())
+    finally:
+        runner.close()
+    left, alive = runner.worker_pids(), sorted(p for p in pids if _pid_alive(p))
+    serial = {rr.name: rr for rr in ways["serial"]}
+    pooled = {rr.name: rr for rr in ways["jobs=2"]}
+    for way, rrs in list(ways.items()) + [("isolate", [iso])]:
+        for rr in rrs:
+            base, shard = serial[rr.name].median_us, pooled[rr.name].median_us
+            emit("dispatch_cell", cell=rr.name, transport=way, status=rr.status,
+                 error=rr.error, median_us=rr.median_us, median_us_serial=base,
+                 median_us_jobs2=shard, jobs2_over_serial=shard / base if base else None,
+                 measure_fence=runner.measure_fence,
+                 worker=rr.extra.get("shard", rr.extra.get("host")),
+                 tokens_digest=rr.extra.get("tokens_digest"),
+                 prov_device=rr.extra.get("prov_device"), card=smi)
+    prof_keys = {k for k in prof_serial.extra if k.startswith("prof_")}
+    worker_keys = {k for k in prof_worker.extra if k.startswith("prof_")}
+    attention_us = prof_worker.extra.get("prof_class_us", {}).get("attention", 0.0)
+    emit("dispatch", card=smi, cells=len(names), seconds=seconds,
+         seconds_total=round(time.perf_counter() - t0, 3), worker_pids=sorted(pids),
+         worker_pids_after_close=left, alive_after_close=alive,
+         profiled_cell=dec.name, prof_keys_equal=prof_keys == worker_keys,
+         prof_keys_only_serial=sorted(prof_keys - worker_keys),
+         prof_keys_only_worker=sorted(worker_keys - prof_keys),
+         worker_attention_us=attention_us, worker_profile_error=prof_worker.extra.get(
+             "prof_error"), worker_trace_clamp=prof_worker.extra.get("trace_clamp"))
+    for way, rrs in list(ways.items()) + [("isolate", [iso])]:
+        bad = [(rr.name, rr.error) for rr in rrs if rr.status != "ok"]
+        check(not bad, f"dispatch {way}: cells failed: {bad}")
+        if way != "isolate":
+            check([rr.name for rr in rrs] == names, f"dispatch {way}: names out of order")
+        for rr in rrs:
+            ref = serial[rr.name]
+            if rr.task == "serve":
+                check(rr.extra["tokens"] == ref.extra["tokens"]
+                      and rr.extra["tokens_digest"] == ref.extra["tokens_digest"],
+                      f"dispatch {way}: {rr.name} tokens differ from the serial run")
+            if way != "serial":
+                check(rr.extra.get("isolated") and rr.extra.get("prov_device") ==
+                      ref.extra["prov_device"], f"dispatch {way}: {rr.name} not from a "
+                      f"worker on the card: {rr.extra.get('prov_device')}")
+    check(prof_serial.status == prof_worker.status == "ok",
+          f"dispatch profile: {prof_serial.error} / {prof_worker.error}")
+    check(prof_keys == worker_keys, f"dispatch profile: prof_* keys differ: serial only "
+          f"{sorted(prof_keys - worker_keys)}, worker only {sorted(worker_keys - prof_keys)}")
+    check(attention_us > 0, "dispatch profile: no attention time in the worker's trace")
+    check(not left and not alive, f"dispatch: workers left after close: {left}, {alive}")
 
 
 def _stub_inputs(cfg, batch):
@@ -1506,6 +1613,7 @@ def main():
     rglru_cases = phase_rglru_kernels()
     phase_rglru_plan_sweep()
     phase_runner()
+    phase_dispatch(smi)
     phase_reference_check("gemma-2b")
     phase_reference_check("mamba2-2.7b")
     # a prompt past the reduced window (64): the ring and its gather

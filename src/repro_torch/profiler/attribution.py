@@ -263,17 +263,18 @@ def profile_extra(phase_log, cost: HloCost, *, kind: str = "step",
     timeline of the measured ``phase_log`` (with the memory stats of
     ``device``, the card unless the caller asks for the CPU), attributed
     over op classes by ``cost`` and the trace's measured class times; a
-    failed trace is recorded as ``prof_error``, and samples the trace's
-    busy time clamped as ``prof_clamped_samples`` and
-    ``prof_busy_over_wall_max``."""
+    failed trace is recorded as ``prof_error``.  The samples the trace's
+    busy time clamped go outside the ``prof_`` namespace, into
+    ``trace_clamp`` (``{"samples": n, "busy_over_wall_max": r}``, on every
+    profiled cell), so the ``prof_*`` key set stays the reference's
+    whatever the machine's load."""
     tl = Timeline.from_phase_log(phase_log or [], kind=kind, wall_s=wall_s,
                                  memory=device_memory_stats(resolve_device(device)))
     trace = device_trace or {}
     extra = tl.to_extra()
     if trace.get("error"):
         extra["prof_error"] = trace["error"]
-    if trace.get("clamped_samples"):
-        extra["prof_clamped_samples"] = trace["clamped_samples"]
-        extra["prof_busy_over_wall_max"] = trace["busy_over_wall_max"]
+    extra["trace_clamp"] = {"samples": trace.get("clamped_samples", 0),
+                            "busy_over_wall_max": trace.get("busy_over_wall_max", 0.0)}
     extra.update(attribute(tl, cost, class_us=trace.get("class_us")).to_extra())
     return extra

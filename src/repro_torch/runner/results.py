@@ -83,13 +83,16 @@ train state) is that many steps further on than an unprofiled one's.
                                   card's allocator stats (absent on CPU)
     extra["prof_error"]    str    the trace or the cost pass failed; the
                                   cell's status stays "ok"
-    extra["prof_clamped_samples"|"prof_busy_over_wall_max"]   port only,
-                                  present when the trace's busy time per
-                                  step B exceeded a sample's wall W: how
-                                  many samples were clamped (their device
-                                  part is W, their host part 0) and the
-                                  largest B / W, a sign that the traced
-                                  steps ran longer than the timed ones
+    extra["trace_clamp"]   dict   port only, outside the ``prof_``
+                                  namespace and on every profiled cell:
+                                  {"samples": how many samples the
+                                  trace's busy time per step B clamped
+                                  because it exceeded their wall W (their
+                                  device part is W, their host part 0),
+                                  "busy_over_wall_max": the largest B / W}
+                                  (0 and 0.0 when the trace failed); a
+                                  large B / W says the traced steps ran
+                                  longer than the timed ones
 
 ``ResultStore`` — an append-only JSONL run log plus an atomically
 rewritten latest-pointer JSON (a directory, or a ``*.json`` path with the

@@ -1,5 +1,4 @@
-"""The BenchmarkRunner (port of ``repro.runner.runner``, serial in-process
-subset).
+"""The BenchmarkRunner (port of ``repro.runner.runner``).
 
 * resolves ``Scenario``s against the suite registry (``core.suite``);
 * reuses expensive state across scenarios: arch builds (config + model on
@@ -7,8 +6,15 @@ subset).
   threaded arguments per scenario, serve engines per (build, mode,
   max_len, admission), and profiled cells' op-class costs per scenario
   (and per serve engine);
+* runs a cell in this process, or in its own subprocess
+  (``isolate=True``: a crash becomes an error record), and a matrix
+  serially, across N persistent shard workers (``jobs=N``, with work
+  stealing and the measurement fence; ``runner/pool.py``) or across
+  socket-connected workers (``cluster="local:N"`` or ``"HOST:PORT"``;
+  ``runner/cluster/``), every worker on this runner's device;
 * emits one schema-v1 ``RunResult`` per execution into a ``ResultStore``,
-  stamped ``extra["prov_framework"]="torch"`` and ``extra["prov_device"]``;
+  stamped ``extra["prov_framework"]="torch"`` and ``extra["prov_device"]``
+  (``stamp``, also on the error records the dispatchers make);
 * profiles a cell when asked (``profile=True`` on the runner, per
   ``run`` or per ``run_matrix``): the measured phase timeline and its
   op-class attribution under ``extra["prof_*"]`` (``repro_torch.profiler``).
@@ -16,14 +22,18 @@ subset).
 Runs ``train``, ``infer_prefill``, ``infer_decode`` and ``serve`` cells in
 modes ``jit`` and ``jit_donated`` (see ``scenario.py`` for the mapping);
 other tasks and modes come back as error records naming the ROADMAP item.
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-pool (``jobs``), cluster dispatch and subprocess isolation (ROADMAP Queue
-1, item 9); span tracing (item 12), coverage, kernel micro-bench cells,
+Not ported yet, and raising ``NotImplementedError`` when asked for: span
+tracing (ROADMAP Queue 1, item 12), coverage, kernel micro-bench cells,
 loadgen (item 13) and the dry-run tier (item 14).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -33,25 +43,34 @@ from repro_torch.core.suite import Built, build_arch, get_benchmark
 from repro_torch.device import DeviceLike, device_name, resolve_device
 from repro_torch.profiler.attribution import profile_extra
 from repro_torch.runner.latency import percentile
+from repro_torch.runner.pool import ShardScheduler, _subprocess_env
 from repro_torch.runner.results import ResultStore, RunResult
 from repro_torch.runner.scenario import PORTED_MODES, Scenario, ScenarioMatrix
 from repro_torch.runner.traces import (cache_len_bound, capture_spec,
                                        spec_for_scenario)
 from repro_torch.runner.traces import generate as generate_trace
 
-_DISPATCH = "(ROADMAP Queue 1, slice 6, item 9: dispatch)"
 _MEASURE = "(ROADMAP Queue 1, slice 7: measurement subsystems)"
 
 
 def _unported(**flags) -> None:
     """Raise for the first runner feature asked for that is not ported."""
-    where = {"isolate": _DISPATCH, "jobs": _DISPATCH, "cluster": _DISPATCH,
-             "tracer": "(ROADMAP Queue 1, slice 7, item 12: span tracing)",
+    where = {"tracer": "(ROADMAP Queue 1, slice 7, item 12: span tracing)",
              "coverage": "(ROADMAP Queue 1, slice 7, item 13: coverage)"}
     for name, asked in flags.items():
         if asked:
             raise NotImplementedError(f"BenchmarkRunner {name}= is not "
                                       f"ported yet {where[name]}")
+
+
+def stamp(rr: RunResult, device: DeviceLike) -> RunResult:
+    """Stamp the port's provenance on a record: which package measured it
+    and on which device.  ``setdefault``: a record a worker stamped keeps
+    its own values; the dispatchers' error records get the dispatcher's
+    device, which its workers share."""
+    rr.extra.setdefault("prov_framework", "torch")
+    rr.extra.setdefault("prov_device", device_name(device))
+    return rr
 
 
 @dataclasses.dataclass
@@ -62,6 +81,18 @@ class RunnerStats:
     executable_cache_hits: int = 0
     scenarios_run: int = 0
     errors: int = 0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def merge(self, other) -> "RunnerStats":
+        """Field-wise add another stats snapshot (RunnerStats or dict) —
+        how worker-subprocess counts become visible in the parent."""
+        d = other.to_dict() if isinstance(other, RunnerStats) else dict(other or {})
+        for f in dataclasses.fields(self):
+            if d.get(f.name):
+                setattr(self, f.name, getattr(self, f.name) + int(d[f.name]))
+        return self
 
 
 @dataclasses.dataclass
@@ -76,11 +107,13 @@ class BenchmarkRunner:
     def __init__(self, store: Optional[ResultStore] = None, *,
                  runs: int = 5, warmup: int = 1, compile_warmup: int = 3,
                  reuse: bool = True, device: DeviceLike = "cuda",
-                 isolate: bool = False, jobs: int = 0, cluster: str = "",
-                 profile: bool = False, tracer: Any = None,
+                 isolate: bool = False, jobs: int = 0,
+                 measure_fence: bool = True, profile: bool = False,
+                 cluster: str = "", steal: bool = True, tracer: Any = None,
                  coverage: bool = False):
-        _unported(isolate=isolate, jobs=jobs > 1, cluster=cluster,
-                  tracer=tracer is not None, coverage=coverage)
+        _unported(tracer=tracer is not None, coverage=coverage)
+        # before anything is spawned: a card asked for and absent raises
+        # here, and every worker runs on this device
         self.device = resolve_device(device)
         self.store = store
         self.runs = runs
@@ -89,6 +122,19 @@ class BenchmarkRunner:
         # above steady state (allocator growth, library handles)
         self.compile_warmup = compile_warmup
         self.reuse = reuse
+        self.isolate = isolate
+        # default shard count for run_matrix; <=1 means the serial
+        # in-process path.  measure_fence serializes the workers' device
+        # work (on a card: every launch of a cell; on the CPU: the timed
+        # loops; see worker._run_cell); throughput-only sweeps may turn it off
+        self.jobs = jobs
+        self.measure_fence = measure_fence
+        # default cluster spec for run_matrix: "local:N" spawns N localhost
+        # socket workers, "HOST:PORT" binds the coordinator there for
+        # workers launched elsewhere (runner/cluster/); "" means none.
+        # steal picks dynamic group stealing vs static LPT for the pool
+        self.cluster = cluster
+        self.steal = steal
         # measured profiling (repro_torch/profiler/): per-step phase
         # timelines + op-class attribution under extra["prof_*"]; per-call
         # override via run(..., profile=...)
@@ -98,6 +144,40 @@ class BenchmarkRunner:
         self._execs: Dict[Scenario, _ExecEntry] = {}
         self._serve_engines: Dict[Tuple, Any] = {}
         self._prof_costs: Dict[Any, HloCost] = {}
+        self._pool: Optional[ShardScheduler] = None
+        self._cluster: Optional[Any] = None   # ClusterScheduler, lazy
+
+    def close(self) -> None:
+        """Shut down the persistent shard workers and the cluster
+        coordinator + its local workers (no-op when serial)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+        if self._cluster is not None:
+            self._cluster.close()
+            self._cluster = None
+
+    def cluster_worker_pids(self) -> List[int]:
+        """PIDs of the locally-spawned cluster workers (``cluster=
+        "local:N"``), empty when no cluster is active or it binds for
+        external workers."""
+        return [] if self._cluster is None else self._cluster.worker_pids()
+
+    def worker_pids(self) -> List[int]:
+        """PIDs of every worker subprocess this runner has live — the
+        shard pool plus local cluster workers.  The no-orphans gate:
+        after ``close()`` this is empty and each earlier PID is dead."""
+        pids: List[int] = []
+        if self._pool is not None:
+            pids.extend(self._pool.worker_pids())
+        pids.extend(self.cluster_worker_pids())
+        return pids
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     # ---- build / executable caches -------------------------------------
 
@@ -162,6 +242,10 @@ class BenchmarkRunner:
         if scenario.task in ("loadgen", "kernel"):
             raise NotImplementedError(f"task={scenario.task!r} is not ported "
                                       f"yet {_MEASURE}")
+        if self.isolate:
+            return self._run_isolated(scenario, hook=hook, runs=runs,
+                                      warmup=warmup, record=record,
+                                      profile=prof, extra=extra)
         if scenario.task == "serve":
             return self._run_serve(scenario, hook=hook, record=record,
                                    profile=prof, extra=extra)
@@ -230,8 +314,7 @@ class BenchmarkRunner:
         """Shared result epilogue: merge extras, stamp provenance, record."""
         if extra:
             rr.extra.update(extra)
-        rr.extra.setdefault("prov_framework", "torch")
-        rr.extra.setdefault("prov_device", device_name(self.device))
+        stamp(rr, self.device)
         if record and self.store is not None:
             self.store.append(rr)
         return rr
@@ -344,16 +427,146 @@ class BenchmarkRunner:
                    jobs: Optional[int] = None,
                    cluster: Optional[str] = None,
                    profile: Optional[bool] = None) -> List[RunResult]:
-        """Run every scenario of the matrix in order, in this process; hooks
-        are keyed by benchmark name ("arch/task") or full scenario name.
-        ``profile`` (default: the runner's setting) profiles every cell."""
-        _unported(jobs=(jobs or 0) > 1, cluster=cluster)
+        """Run every scenario of the matrix; hooks are keyed by benchmark
+        name ("arch/task") or full scenario name.
+
+        ``jobs=N`` (default: the runner's ``jobs``) shards the scenarios
+        across N persistent worker subprocesses, grouped by build_key so
+        each worker keeps its caches hot (``runner/pool.py``); results
+        come back in matrix order with ``extra["shard"]`` set.
+        ``jobs<=1`` is the serial in-process path.  ``cluster`` (default:
+        the runner's; overrides ``jobs``) dispatches across
+        socket-connected workers instead (``runner/cluster/``); results
+        carry ``extra["host"]``.  ``profile`` (default: the runner's
+        setting) profiles every cell; under dispatch it rides in each
+        worker job.
+        """
+        scenarios = matrix.expand()
+        jobs = self.jobs if jobs is None else jobs
+        cluster = self.cluster if cluster is None else cluster
+        if cluster and scenarios:
+            return self._run_clustered(scenarios, hooks=hooks, runs=runs,
+                                       warmup=warmup, cluster=cluster,
+                                       profile=profile)
+        if jobs and jobs > 1 and scenarios:
+            # even a single cell goes through the pool: the caller opted
+            # into worker fault containment and shard metadata
+            return self._run_sharded(scenarios, hooks=hooks, runs=runs,
+                                     warmup=warmup, jobs=jobs,
+                                     profile=profile)
         out = []
-        for sc in matrix.expand():
+        for sc in scenarios:
             hook = (hooks or {}).get(sc.name) or (hooks or {}).get(sc.bench)
             out.append(self.run(sc, hook=hook, runs=runs, warmup=warmup,
                                 profile=profile))
         return out
+
+    def _dispatch_config(self) -> Dict[str, Any]:
+        """What every worker is started with: this runner's measurement
+        protocol and device."""
+        return dict(runs=self.runs, warmup=self.warmup,
+                    compile_warmup=self.compile_warmup, reuse=self.reuse,
+                    measure_fence=self.measure_fence, device=str(self.device))
+
+    def _run_sharded(self, scenarios: List[Scenario], *,
+                     hooks: Optional[Dict[str, RegressionHook]],
+                     runs: Optional[int], warmup: Optional[int], jobs: int,
+                     profile: Optional[bool] = None) -> List[RunResult]:
+        """Dispatch a scenario batch to the persistent shard pool; the pool
+        (and its workers' warm caches) lives until ``close()``."""
+        if self._pool is not None and self._pool.jobs != jobs:
+            self._pool.close()
+            self._pool = None
+        if self._pool is None:
+            self._pool = ShardScheduler(jobs, **self._dispatch_config())
+        record = self.store.append if self.store is not None else None
+        prof = self.profile if profile is None else profile
+        results, run_stats = self._pool.run(scenarios, hooks=hooks, runs=runs,
+                                            warmup=warmup, profile=prof,
+                                            on_result=record, steal=self.steal)
+        self.stats.merge(run_stats)
+        return results
+
+    def _run_clustered(self, scenarios: List[Scenario], *,
+                       hooks: Optional[Dict[str, RegressionHook]],
+                       runs: Optional[int], warmup: Optional[int],
+                       cluster: str,
+                       profile: Optional[bool] = None) -> List[RunResult]:
+        """Dispatch a scenario batch to the cluster coordinator; the
+        coordinator (and for ``local:N`` its worker subprocesses with
+        their warm caches) lives until ``close()``, like the pool."""
+        from repro_torch.runner.cluster import ClusterScheduler
+        if self._cluster is not None and self._cluster.spec != cluster:
+            self._cluster.close()
+            self._cluster = None
+        if self._cluster is None:
+            self._cluster = ClusterScheduler(cluster, **self._dispatch_config())
+        record = self.store.append if self.store is not None else None
+        prof = self.profile if profile is None else profile
+        results, run_stats = self._cluster.run(scenarios, hooks=hooks,
+                                               runs=runs, warmup=warmup,
+                                               profile=prof, on_result=record)
+        self.stats.merge(run_stats)
+        return results
+
+    # ---- subprocess isolation -------------------------------------------
+
+    def _run_isolated(self, scenario: Scenario, *,
+                      hook: Optional[RegressionHook] = None,
+                      runs: Optional[int] = None,
+                      warmup: Optional[int] = None,
+                      record: bool = True, timeout: int = 1200,
+                      profile: bool = False,
+                      extra: Optional[Dict[str, Any]] = None) -> RunResult:
+        """One scenario in its own interpreter on this runner's device: a
+        crash (a kernel fault, OOM, ...) becomes an error record instead
+        of killing the sweep.  The measurement config is forwarded, and
+        the worker's ``RunnerStats`` come back in the payload and are
+        merged."""
+        t0 = time.perf_counter()
+        fd, out = tempfile.mkstemp(suffix=".json", prefix="repro_torch_runner_")
+        os.close(fd)
+        cmd = [sys.executable, "-m", "repro_torch.runner.worker",
+               "--scenario", json.dumps(scenario.to_dict()),
+               "--runs", str(runs or self.runs),
+               "--warmup", str(self.warmup if warmup is None else warmup),
+               "--compile-warmup", str(self.compile_warmup),
+               "--device", str(self.device), "--json", out]
+        if not self.reuse:
+            cmd.append("--no-reuse")
+        if profile:
+            cmd.append("--profile")
+        if hook is not None:
+            cmd += ["--slowdown-s", str(hook.slowdown_s),
+                    "--leak-bytes", str(hook.leak_bytes)]
+        try:
+            r = subprocess.run(cmd, env=_subprocess_env(), capture_output=True,
+                               text=True, timeout=timeout)
+            if r.returncode == 0 and os.path.getsize(out):
+                with open(out) as f:
+                    payload = json.load(f)
+                rr = RunResult.from_dict(payload["result"])
+                worker_stats = payload.get("stats") or {}
+                rr.wall_s = time.perf_counter() - t0
+                rr.extra["isolated"] = True
+                rr.extra["worker_stats"] = worker_stats
+                self.stats.merge(worker_stats)
+            else:
+                self.stats.scenarios_run += 1
+                self.stats.errors += 1
+                rr = RunResult.from_error(
+                    scenario, f"worker exit {r.returncode}: {r.stderr[-500:]}",
+                    wall_s=time.perf_counter() - t0)
+        except subprocess.TimeoutExpired:
+            self.stats.scenarios_run += 1
+            self.stats.errors += 1
+            rr = RunResult.from_error(scenario, f"worker timeout after {timeout}s",
+                                      wall_s=time.perf_counter() - t0)
+        finally:
+            if os.path.exists(out):
+                os.remove(out)
+        # the worker stamped its own record; _finalize fills error records
+        return self._finalize(rr, extra, record)
 
     def run_dryrun(self, *args, **kwargs):
         raise NotImplementedError("the derived (dry-run) tier is not ported "

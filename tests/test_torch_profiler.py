@@ -354,6 +354,7 @@ def test_profiled_cells_carry_the_reference_keys(reference, runner, name):
     assert abs(sum(e["prof_class_frac"].values()) - 1.0) < 1e-9
     assert e["prof_class_us"]["attention"] > 0 and e["prof_flops"] > 0
     assert e["prof_util"] > 0 and "prof_error" not in e
+    assert set(e["trace_clamp"]) == {"samples", "busy_over_wall_max"}
     assert json.loads(json.dumps(rr.to_dict()))["extra"]["prof_steps"] == e["prof_steps"]
     if name == "serve":
         assert e["prof_kind"] == "decode_step"
@@ -468,8 +469,8 @@ def test_a_profile_traces_the_device_it_is_given():
 
 def test_samples_shorter_than_the_trace_are_recorded_as_clamped():
     """A sample whose wall W is below the traced busy time per step B is
-    clamped (device W, host 0), and the profile says so; an unclamped one
-    records nothing more than the reference's keys."""
+    clamped (device W, host 0), and the profile says so in ``trace_clamp``,
+    outside the ``prof_`` keys; an unclamped one records 0 samples there."""
     w = torch.randn(256, 256)
     log, trace = [], {}
     trace_phases(lambda: w @ w, 2, [1e-9, 10.0], log, trace, "cpu")
@@ -479,13 +480,14 @@ def test_samples_shorter_than_the_trace_are_recorded_as_clamped():
     assert trace["clamped_samples"] == 1
     assert trace["busy_over_wall_max"] == pytest.approx(busy_s / 1e-9)
     extra = profile_extra(log, HloCost(), device_trace=trace, device="cpu")
-    assert extra["prof_clamped_samples"] == 1
-    assert extra["prof_busy_over_wall_max"] == trace["busy_over_wall_max"]
+    assert extra["trace_clamp"] == {"samples": 1,
+                                    "busy_over_wall_max": trace["busy_over_wall_max"]}
     log, trace = [], {}
     trace_phases(lambda: w @ w, 2, [10.0], log, trace, "cpu")
     assert trace["clamped_samples"] == 0
     extra = profile_extra(log, HloCost(), device_trace=trace, device="cpu")
-    assert not {"prof_clamped_samples", "prof_busy_over_wall_max"} & set(extra)
+    assert extra["trace_clamp"]["samples"] == 0
+    assert extra["trace_clamp"]["busy_over_wall_max"] == trace["busy_over_wall_max"]
 
 
 def test_serve_phase_log_leaves_the_replay_unchanged():
@@ -514,14 +516,23 @@ def test_trace_classes_the_cpu_kernel_calls_as_attention():
 
 
 @pytest.mark.parametrize("call", ["jobs", "tracer", "coverage", "cluster"])
-def test_dispatch_tracing_and_coverage_still_raise(call):
+def test_dispatch_tracing_and_coverage_still_raise(call, monkeypatch):
+    """Tracing and coverage still raise; dispatch is ported, so a profiled
+    matrix through the pool or the cluster runs, with the profile."""
     m = ScenarioMatrix(archs=("gemma-2b",), tasks=("infer_prefill",), batches=(1,), seqs=(8,))
+    if call in ("jobs", "cluster"):
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        r = BenchmarkRunner(device="cpu", runs=2, warmup=0, compile_warmup=0)
+        try:
+            kw = dict(jobs=2) if call == "jobs" else dict(cluster="local:2")
+            (rr,) = r.run_matrix(m, profile=True, **kw)
+        finally:
+            r.close()
+        assert rr.status == "ok" and rr.extra["isolated"], rr.error
+        assert abs(_frac_sum(rr.extra) - 1.0) < 1e-9
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "jobs":
-            BenchmarkRunner(device="cpu").run_matrix(m, jobs=2, profile=True)
-        elif call == "cluster":
-            BenchmarkRunner(device="cpu").run_matrix(m, cluster="local:2")
-        elif call == "tracer":
+        if call == "tracer":
             BenchmarkRunner(device="cpu", profile=True, tracer=object())
         else:
             BenchmarkRunner(device="cpu", profile=True, coverage=True)

@@ -49,12 +49,32 @@ def test_unported_tasks_and_modes_come_back_as_error_records(runner):
         assert rr.status == "error" and "ROADMAP" in rr.error
 
 
-@pytest.mark.parametrize("option", [dict(isolate=True), dict(jobs=2),
-                                    dict(cluster="local:2"), dict(jobs=4, profile=True),
-                                    dict(tracer=object()), dict(coverage=True)])
+@pytest.mark.parametrize("option", [dict(tracer=object()), dict(coverage=True)])
 def test_unported_runner_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BenchmarkRunner(device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [dict(isolate=True), dict(jobs=2),
+                                    dict(cluster="local:2"), dict(jobs=4, profile=True)])
+def test_dispatch_options_run_a_cell_ok(option, monkeypatch):
+    """Each dispatch option, once refused, runs one cell on the CPU, in a
+    worker subprocess on the runner's device."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    r = BenchmarkRunner(device="cpu", runs=1, warmup=0, compile_warmup=0, **option)
+    sc = Scenario(arch="gemma-2b", task="infer_prefill", batch=1, seq=8)
+    try:
+        if option.get("isolate"):
+            (rr,) = [r.run(sc)]
+        else:
+            (rr,) = r.run_matrix(ScenarioMatrix(archs=("gemma-2b",), tasks=("infer_prefill",),
+                                                batches=(1,), seqs=(8,)))
+    finally:
+        r.close()
+    assert rr.status == "ok", rr.error
+    assert rr.name == sc.name and rr.extra["isolated"] and rr.extra["prov_device"] == "cpu"
+    assert ("prof_util" in rr.extra) == bool(option.get("profile"))
+    assert r.worker_pids() == []
 
 
 def test_entry_points_default_to_the_card():

@@ -355,3 +355,28 @@ def test_other_families_train_step_matches_reference_on_cpu(arch, moments_rtol):
         state, {"tokens": torch.from_numpy(tokens)})
     _assert_step(state, metrics, (_np(rparams), _np(ropt), {k: float(v) for k, v in rm.items()}),
                  moments_rtol)
+
+
+def test_eight_steps_on_one_batch_match_reference():
+    """``chip_smoke.py``'s repeated-batch run, reduced: eight fp32 steps on
+    one batch with ``warmup_steps=1`` (the full learning rate from step 2)
+    give the reference's loss at every step, so the curve's shape, rising
+    or falling, is AdamW's on these weights and not a fault of the port."""
+    hyper = dict(warmup_steps=1, total_steps=10000)
+    tokens = _tokens(2, 16, seed=3)
+    rcfg = ref_get_arch("gemma-2b").reduced(compute_dtype=jnp.float32)
+    ref_step, ref_model = ref_make_train_step(rcfg, RefHyper(**hyper))
+    params = ref_model.init(jax.random.key(0))
+    ref_state, ref_losses = (params, ref_adamw_init(params)), []
+    ref_step = jax.jit(ref_step)
+    for _ in range(8):
+        ref_state, m = ref_step(ref_state, {"tokens": jnp.asarray(tokens)})
+        ref_losses.append(float(m["loss"]))
+    tcfg, state = _port_state(_np(params))
+    step = make_train_step(tcfg, TrainHyper(**hyper))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    losses = []
+    for _ in range(8):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert losses == pytest.approx(ref_losses, rel=RTOL)
