@@ -28,10 +28,11 @@ bytes_accessed``.  ``op_class`` names the class of an aten op
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import re
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -220,23 +221,20 @@ def _snapshot(x: Any, tensors: list, bindings: list) -> None:
             _snapshot(v, tensors, bindings)
 
 
-def analyze_step(fn: Callable, args: Sequence = (),
-                 mutable: Tuple[int, ...] = ()) -> HloCost:
-    """The op-class cost of one call ``fn(*args)``, run once, untimed.
-
-    ``mutable`` are the argument slots the call updates in place (a
-    donated cache, a train state): their values are copied to the host
-    before the call and written back after it, and their containers'
-    entries put back, so the pass leaves the cell's state as it found it
-    without a second copy on the card."""
+@contextlib.contextmanager
+def preserved(args: Sequence, mutable: Tuple[int, ...]) -> Iterator[None]:
+    """Leave the argument slots ``mutable`` of ``args`` (a donated cache,
+    a train state) as they were across the block, which runs a step on
+    them: their values are copied to the host before it and written back
+    after it, and their containers' entries put back, without a second
+    copy on the card.  The block's work on the cards of ``args`` is waited
+    for before the write-back, so a fault of it raises here."""
     tensors: list = []
     bindings: list = []
     for i in mutable:
         _snapshot(args[i], tensors, bindings)
-    counter = _StepCost()
     try:
-        with accounting(counter), counter:
-            fn(*args)
+        yield
         devices = {t.device for t in tree_leaves(list(args))
                    if isinstance(t, torch.Tensor) and t.is_cuda}
         for d in devices:
@@ -251,6 +249,17 @@ def analyze_step(fn: Callable, args: Sequence = (),
         with torch.no_grad():
             for t, saved in tensors:
                 t.copy_(saved)
+
+
+def analyze_step(fn: Callable, args: Sequence = (),
+                 mutable: Tuple[int, ...] = ()) -> HloCost:
+    """The op-class cost of one call ``fn(*args)``, run once, untimed.
+
+    ``mutable`` are the argument slots the call updates in place: the
+    pass leaves them as it found them (``preserved``)."""
+    counter = _StepCost()
+    with preserved(args, mutable), accounting(counter), counter:
+        fn(*args)
     if counter.kernels:
         counter.cost.notes.append(
             "kernel calls: " + ", ".join(f"{k} {n}" for k, n in sorted(counter.kernels.items())))

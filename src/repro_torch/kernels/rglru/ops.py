@@ -9,9 +9,10 @@ card; the kernel takes any S and D, so nothing is padded.
 Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.rglru_blocked``; a CUDA tensor launches the kernel, or the call
 raises (also when a gradient is wanted: the kernel has no backward
-yet).  There is no fallback from one to the other.  Either call runs in
-``accounting.kernel_scope``: the profiler counts it as one attention call
-of ``kernel.cost`` work.  The reference's
+yet).  There is no fallback from one to the other.  Either call runs whole in
+``accounting.kernel_scope``: the profiler and the analysis and coverage
+passes count it as one attention call of ``kernel.cost`` work, and see
+the same ops around it on both devices.  The reference's
 ``block_t``/``block_d`` arguments and tuning-DB lookup have no
 counterpart: ``kernel.plan()`` picks the kernel's variant from shapes
 (``tuning/`` is ROADMAP Queue 1, slice 7).
@@ -41,20 +42,18 @@ def rglru(x: torch.Tensor, a: torch.Tensor,
     fp32, h_last (B, D) fp32) with h_t = a_t h_{t-1} + sqrt(1 - a_t^2) x_t."""
     B, S, D = x.shape
     work = lambda: cost(B, S, D, init_state is not None)   # noqa: E731
-    if x.device.type == "cpu":
-        with kernel_scope("rglru", work, x.device):
+    with kernel_scope("rglru", work, x.device):
+        if x.device.type == "cpu":
             h = rglru_blocked(x, a, init_state)
-    elif x.device.type == "cuda":
-        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                           for t in (x, a, init_state)):
-            raise NotImplementedError(
-                "rglru: the CUDA kernel has no backward yet, and its output "
-                "would carry no gradient (ROADMAP Queue 1: recurrentgemma "
-                "training on the card)")
-        args = (_rows(x), _rows(a),
-                None if init_state is None else init_state.float().contiguous())
-        with kernel_scope("rglru", work, x.device):
-            h = rglru_cuda(*args)
-    else:
-        raise ValueError(f"rglru: no path for device {x.device}")
-    return h, h[:, -1]
+        elif x.device.type == "cuda":
+            if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                               for t in (x, a, init_state)):
+                raise NotImplementedError(
+                    "rglru: the CUDA kernel has no backward yet, and its output "
+                    "would carry no gradient (ROADMAP Queue 1: recurrentgemma "
+                    "training on the card)")
+            h = rglru_cuda(_rows(x), _rows(a),
+                           None if init_state is None else init_state.float().contiguous())
+        else:
+            raise ValueError(f"rglru: no path for device {x.device}")
+        return h, h[:, -1]

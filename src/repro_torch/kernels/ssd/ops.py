@@ -11,9 +11,10 @@ Dispatch is by where the tensors lie, and nowhere else: a CPU tensor goes
 to ``ref.ssd_ref``; a CUDA tensor launches the kernel (the variant
 ``kernel.plan()`` names), or the call raises; it raises too when a
 gradient is wanted, since the kernel has no backward yet.
-There is no fallback from one to the other.  Either call runs in
-``accounting.kernel_scope``: the profiler counts it as one attention call
-of ``kernel.cost`` work.  Both chunk by the kernel's 64
+There is no fallback from one to the other.  Either call runs whole in
+``accounting.kernel_scope``: the profiler and the analysis and coverage
+passes count it as one attention call of ``kernel.cost`` work, and see
+the same ops around it on both devices.  Both chunk by the kernel's 64
 steps (``ref.CHUNK``); the reference's ``chunk`` argument and tuning-DB
 lookup have no counterpart yet (``tuning/`` is ROADMAP Queue 1, slice 7).
 """
@@ -42,19 +43,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     B, S, H, P = x.shape
     work = lambda: cost(B, S, H, P, Bm.shape[-1], x.dtype,   # noqa: E731
                         init_state is not None)
-    if x.device.type == "cpu":
-        with kernel_scope("ssd", work, x.device):
-            return ssd_ref(x, dt, A, Bm, Cm, init_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd: no path for device {x.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, dt, A, Bm, Cm, init_state)):
-        raise NotImplementedError(
-            "ssd: the CUDA kernel has no backward yet, and its output would "
-            "carry no gradient (ROADMAP Queue 1: mamba2 training on the card)")
-    if x.stride(-1) != 1 or (x.stride(2) != P and H > 1):
-        x = x.contiguous()
-    args = (x, dt.contiguous(), A.contiguous(), _rows(Bm), _rows(Cm),
-            None if init_state is None else init_state.contiguous())
     with kernel_scope("ssd", work, x.device):
-        return ssd_cuda(*args)
+        if x.device.type == "cpu":
+            return ssd_ref(x, dt, A, Bm, Cm, init_state)
+        if x.device.type != "cuda":
+            raise ValueError(f"ssd: no path for device {x.device}")
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, dt, A, Bm, Cm, init_state)):
+            raise NotImplementedError(
+                "ssd: the CUDA kernel has no backward yet, and its output would "
+                "carry no gradient (ROADMAP Queue 1: mamba2 training on the card)")
+        if x.stride(-1) != 1 or (x.stride(2) != P and H > 1):
+            x = x.contiguous()
+        return ssd_cuda(x, dt.contiguous(), A.contiguous(), _rows(Bm), _rows(Cm),
+                        None if init_state is None else init_state.contiguous())

@@ -354,13 +354,17 @@ def _dots_policy(ctx, func, *args, **kwargs):
 
 
 def _remat(fn, mode: str):
-    """``fn`` run under the reference's remat policy ``mode``."""
+    """``fn`` run under the reference's remat policy ``mode``.  A layer
+    draws no random numbers, so no generator state is carried into its
+    recomputation (``preserve_rng_state=False``), as the reference's remat
+    carries none: preserving it would read every card's generator state at
+    each layer, host work and torch API calls the CPU does not make."""
     if mode == "none":
         return fn
     if mode == "full":
-        return partial(checkpoint, fn, use_reentrant=False)
+        return partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
     if mode == "dots":
-        return partial(checkpoint, fn, use_reentrant=False,
+        return partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
                        context_fn=partial(create_selective_checkpoint_contexts,
                                           _dots_policy))
     raise ValueError(f"unknown remat {mode!r} (none | full | dots)")

@@ -94,6 +94,26 @@ train state) is that many steps further on than an unprofiled one's.
                                   large B / W says the traced steps ran
                                   longer than the timed ones
 
+Coverage annotations (still schema v1; step cells of a
+``BenchmarkRunner(coverage=True)``, serial and in-process only):
+
+    extra["cov_primitives"]     int   distinct torch API functions the
+                                  cell's step calls (``core/coverage``:
+                                  one run of the step under a
+                                  ``TorchFunctionMode``, each kernel call
+                                  one name; cached per scenario) — the
+                                  reference counts jaxpr primitives here
+    extra["cov_new_primitives"] int   of those, how many this cell added
+                                  to the runner's suite-union frontier
+                                  (first cell of a sweep pays the whole
+                                  union; later cells count marginal
+                                  coverage — the paper's breadth metric
+                                  as a per-cell number).  The running
+                                  union size is the
+                                  ``fleet_cov_union_primitives`` gauge.
+                                  A pass that raises makes the cell an
+                                  error record (the reference drops it).
+
 ``ResultStore`` — an append-only JSONL run log plus an atomically
 rewritten latest-pointer JSON (a directory, or a ``*.json`` path with the
 log beside it), safe for concurrent appenders.

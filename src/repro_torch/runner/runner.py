@@ -17,14 +17,16 @@
   (``stamp``, also on the error records the dispatchers make);
 * profiles a cell when asked (``profile=True`` on the runner, per
   ``run`` or per ``run_matrix``): the measured phase timeline and its
-  op-class attribution under ``extra["prof_*"]`` (``repro_torch.profiler``).
+  op-class attribution under ``extra["prof_*"]`` (``repro_torch.profiler``);
+* annotates serial, in-process step cells with their API-surface coverage
+  when asked (``coverage=True``): ``extra["cov_*"]`` (``core/coverage``).
 
 Runs ``train``, ``infer_prefill``, ``infer_decode`` and ``serve`` cells in
 modes ``jit`` and ``jit_donated`` (see ``scenario.py`` for the mapping);
 other tasks and modes come back as error records naming the ROADMAP item.
 Not ported yet, and raising ``NotImplementedError`` when asked for: span
-tracing (ROADMAP Queue 1, item 12), coverage, kernel micro-bench cells,
-loadgen (item 13) and the dry-run tier (item 14).
+tracing (ROADMAP Queue 1, item 12), kernel micro-bench cells, loadgen
+(item 13) and the dry-run tier (item 14).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.core.harness import RegressionHook, measure, prepare
 from repro_torch.core.hloanalysis import HloCost, analyze_step
 from repro_torch.core.suite import Built, build_arch, get_benchmark
 from repro_torch.device import DeviceLike, device_name, resolve_device
+from repro_torch.fleet.metrics import registry as metrics_registry
 from repro_torch.profiler.attribution import profile_extra
 from repro_torch.runner.latency import percentile
 from repro_torch.runner.pool import ShardScheduler, _subprocess_env
@@ -55,8 +58,7 @@ _MEASURE = "(ROADMAP Queue 1, slice 7: measurement subsystems)"
 
 def _unported(**flags) -> None:
     """Raise for the first runner feature asked for that is not ported."""
-    where = {"tracer": "(ROADMAP Queue 1, slice 7, item 12: span tracing)",
-             "coverage": "(ROADMAP Queue 1, slice 7, item 13: coverage)"}
+    where = {"tracer": "(ROADMAP Queue 1, slice 7, item 12: span tracing)"}
     for name, asked in flags.items():
         if asked:
             raise NotImplementedError(f"BenchmarkRunner {name}= is not "
@@ -101,6 +103,7 @@ class _ExecEntry:
     step: Callable
     args: Tuple                     # threaded, donation-valid arguments
     donate: Tuple[int, ...]
+    mutable: Tuple[int, ...]        # the slots the step updates in place
 
 
 class BenchmarkRunner:
@@ -111,7 +114,7 @@ class BenchmarkRunner:
                  measure_fence: bool = True, profile: bool = False,
                  cluster: str = "", steal: bool = True, tracer: Any = None,
                  coverage: bool = False):
-        _unported(tracer=tracer is not None, coverage=coverage)
+        _unported(tracer=tracer is not None)
         # before anything is spawned: a card asked for and absent raises
         # here, and every worker runs on this device
         self.device = resolve_device(device)
@@ -139,6 +142,14 @@ class BenchmarkRunner:
         # timelines + op-class attribution under extra["prof_*"]; per-call
         # override via run(..., profile=...)
         self.profile = profile
+        # API-surface coverage annotations (opt-in, serial in-process step
+        # cells only): run each scenario's step once through
+        # core.coverage.step_surfaces and attach extra["cov_*"] counts; the
+        # process-wide union feeds the metrics-registry gauge.  The pass is
+        # cached per scenario, so re-measures pay nothing.
+        self.coverage = coverage
+        self._cov_cache: Dict[Scenario, frozenset] = {}
+        self._cov_union: set = set()
         self.stats = RunnerStats()
         self._built: Dict[Tuple, Built] = {}
         self._execs: Dict[Scenario, _ExecEntry] = {}
@@ -212,7 +223,7 @@ class BenchmarkRunner:
                                         built=built)
         d = donate if scenario.mode == "jit_donated" else ()
         entry = _ExecEntry(jitted=prepare(step, d, mutable=donate), step=step,
-                           args=args, donate=d)
+                           args=args, donate=d, mutable=donate)
         self.stats.executable_builds += 1
         if self.reuse:
             self._execs[scenario] = entry
@@ -253,6 +264,8 @@ class BenchmarkRunner:
         self.stats.scenarios_run += 1
         try:
             entry, cache = self._resolve(scenario)
+            # before the measure, which threads the donated state on
+            cov = self._coverage_extra(scenario, entry) if self.coverage else None
             wu = self.warmup if warmup is None else warmup
             if not cache.get("executable_reused"):
                 wu += self.compile_warmup
@@ -271,6 +284,8 @@ class BenchmarkRunner:
                 scenario, m, wall_s=time.perf_counter() - t0, cache=cache)
             if cache.get("executable_reused"):
                 rr.compile_us = 0.0
+            if cov:
+                rr.extra.update(cov)
             if prof:
                 rr.extra.update(self._profile_extra(
                     scenario, phase_log, trace,
@@ -282,6 +297,28 @@ class BenchmarkRunner:
             rr = RunResult.from_error(scenario, f"{type(e).__name__}: {e}",
                                       wall_s=time.perf_counter() - t0)
         return self._finalize(rr, extra, record)
+
+    def _coverage_extra(self, scenario: Scenario,
+                        entry: _ExecEntry) -> Dict[str, int]:
+        """Per-scenario torch API counts (``extra["cov_*"]``) and the
+        process-union gauge — the cheap seed for the coverage loop.
+
+        The reference swallows a failed pass ("coverage is advisory");
+        here the pass runs the step, on the card through the kernels, and a
+        swallowed CUDA error would stay with the process and hide a kernel
+        fault, so an exception reaches ``run``, which makes the cell an
+        error record."""
+        prims = self._cov_cache.get(scenario)
+        if prims is None:
+            from repro_torch.core.coverage import step_surfaces
+            api, _ = step_surfaces(entry.step, entry.args, entry.mutable)
+            prims = frozenset(api)
+            self._cov_cache[scenario] = prims
+        new = prims - self._cov_union
+        self._cov_union |= prims
+        metrics_registry().set_gauge("fleet_cov_union_primitives",
+                                     len(self._cov_union))
+        return {"cov_primitives": len(prims), "cov_new_primitives": len(new)}
 
     # ---- measured profiling ---------------------------------------------
 

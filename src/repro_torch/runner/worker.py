@@ -116,11 +116,13 @@ def _build_runner(args):
     return runner
 
 
-def _hook_from(slowdown_s: float, leak_bytes: int):
+def _hook_from(slowdown_s: float, leak_bytes: int, device):
+    """The dispatcher's hook parameters as a hook that leaks on the
+    worker's device."""
     if not (slowdown_s or leak_bytes):
         return None
     from repro_torch.core.harness import RegressionHook
-    return RegressionHook(slowdown_s=slowdown_s, leak_bytes=leak_bytes)
+    return RegressionHook(slowdown_s=slowdown_s, leak_bytes=leak_bytes, device=device)
 
 
 def _run_cell(runner, scenario, hook, runs, warmup, lock_path,
@@ -183,7 +185,7 @@ def _handle_job(runner, msg: dict, args) -> dict:
     scenario = Scenario.from_dict(msg["scenario"])
     hook_params = msg.get("hook") or {}
     hook = _hook_from(hook_params.get("slowdown_s", 0.0),
-                      hook_params.get("leak_bytes", 0))
+                      hook_params.get("leak_bytes", 0), runner.device)
     rr = _run_cell(runner, scenario, hook, msg.get("runs"),
                    msg.get("warmup"), args.measure_lock,
                    profile=bool(msg.get("profile") or args.profile),
@@ -332,7 +334,8 @@ def main(argv=None) -> int:
 
     scenario = Scenario.from_dict(json.loads(args.scenario))
     runner = _build_runner(args)
-    rr = runner.run(scenario, hook=_hook_from(args.slowdown_s, args.leak_bytes),
+    rr = runner.run(scenario, hook=_hook_from(args.slowdown_s, args.leak_bytes,
+                                              runner.device),
                     record=False, profile=args.profile)
     with open(args.json, "w") as f:
         json.dump({"result": rr.to_dict(), "stats": runner.stats.to_dict()}, f)

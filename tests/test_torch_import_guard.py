@@ -1,7 +1,8 @@
 """The port imports neither ``jax`` nor anything of ``repro``: in a fresh
 interpreter that refuses both, every module of ``repro_torch`` imports
 (the training, profiler and dispatch modules among them) and a tiny
-prefill, a tiny train step and a profiled runner cell run on the CPU; a
+prefill, a tiny train step and a profiled runner cell run on the CPU (the
+perf-CI, coverage, roofline and breakdown modules among those imported); a
 ``python -m repro_torch.runner.worker`` subprocess that refuses both runs
 one cell and has loaded neither."""
 import json
@@ -39,7 +40,9 @@ assert {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
         "repro_torch.core.hloanalysis", "repro_torch.runner.protocol",
         "repro_torch.runner.worker", "repro_torch.runner.pool",
         "repro_torch.runner.cluster.coordinator", "repro_torch.runner.cluster.scheduler",
-        "repro_torch.fleet.metrics", "repro_torch.telemetry.spans"} <= set(names)
+        "repro_torch.fleet.metrics", "repro_torch.telemetry.spans",
+        "repro_torch.core.regression", "repro_torch.core.ci", "repro_torch.core.coverage",
+        "repro_torch.core.roofline", "repro_torch.core.breakdown"} <= set(names)
 from repro_torch.core.suite import get_benchmark
 step, (state, batch), _ = get_benchmark("gemma-2b", "train").make(batch=1, seq=4, built=built)
 state, metrics = step(state, batch)
