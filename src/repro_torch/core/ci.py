@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs import ARCHS
 from repro_torch.core.harness import RegressionHook
@@ -38,13 +38,15 @@ def run_nightly(store: MetricStore, *, archs: Optional[List[str]] = None,
                 update_baseline: bool = False,
                 hooks: Optional[Dict[str, RegressionHook]] = None,
                 runner: Optional[BenchmarkRunner] = None,
-                jobs: Optional[int] = None) -> NightlyReport:
+                jobs: Optional[int] = None,
+                exclude: Sequence[str] = ()) -> NightlyReport:
     """``jobs=N`` shards the night's matrix across N worker subprocesses
     (defaults to the runner's own ``jobs`` setting; the hooks' slowdown
     and leak ride in each job); the persistent pool keeps worker caches
     warm across repeated nights.  ``batches``/``seqs`` pick the probe
     cells — noisy shared hosts want small ones, so an injected regression
-    dwarfs host jitter.
+    dwarfs host jitter.  ``exclude`` drops the cells whose names match one
+    of its patterns (``ScenarioMatrix.exclude``).
 
     Every measured result (ok or error, baseline night or not) is also
     appended to the store's history log as a time-series point
@@ -56,7 +58,7 @@ def run_nightly(store: MetricStore, *, archs: Optional[List[str]] = None,
     owned = runner is None      # close what we create (shard workers!)
     runner = runner or BenchmarkRunner(runs=runs)
     matrix = ScenarioMatrix(archs=sorted(archs or ARCHS), tasks=tasks,
-                            batches=batches, seqs=seqs)
+                            batches=batches, seqs=seqs, exclude=tuple(exclude))
     ran = 0
     try:
         for rr in runner.run_matrix(matrix, hooks=hooks, runs=runs, jobs=jobs):

@@ -16,8 +16,9 @@ surface than MLPerf.  The reference's two layers are the port's two:
   StableHLO ops.
 
 Each of the port's kernel calls is one op of both surfaces, named
-``repro_torch.kernel::<name>`` (``kernels.accounting``), and the ops
-inside it are not counted: on the card its ctypes launch shows through
+``repro_torch.kernel::<name>`` (``kernels.accounting``), and neither the
+custom op the modes see (``repro_torch::<name>``) nor the ops inside it
+are counted: on the card its ctypes launch shows through
 neither mode, on the CPU its plain version would show as many ops.  So a
 step's surfaces are the same on either device.
 
@@ -43,7 +44,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.hloanalysis import preserved
 from repro_torch.device import DeviceLike
-from repro_torch.kernels.accounting import SCOPE_PREFIX, accounting
+from repro_torch.kernels.accounting import SCOPE_PREFIX, accounting, is_kernel_op
 
 
 def api_name(func: Callable) -> str:
@@ -77,7 +78,7 @@ class _ApiMode(TorchFunctionMode):
         self.surfaces = surfaces
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        if self.surfaces.depth == 0:
+        if self.surfaces.depth == 0 and not is_kernel_op(func):
             self.surfaces.api.add(api_name(func))
         return func(*args, **(kwargs or {}))
 
@@ -88,7 +89,7 @@ class _AtenMode(TorchDispatchMode):
         self.surfaces = surfaces
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if self.surfaces.depth == 0:
+        if self.surfaces.depth == 0 and not is_kernel_op(func):
             self.surfaces.aten.add(func._schema.name)
         return func(*args, **(kwargs or {}))
 

@@ -25,14 +25,34 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import os
 import time
 import tracemalloc
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.build import BUILD_DIR
+
+#: ``torch.compile``'s backend by device type: Inductor on the card; on
+#: the CPU ``aot_eager`` (the AOT-autograd graphs run as traced), the
+#: counterpart of the kernels' plain versions, which compiles a reduced
+#: cell in seconds where Inductor's C++ takes tens of them
+COMPILE_BACKENDS = {"cuda": "inductor", "cpu": "aot_eager"}
+
+#: compiles of one code object (one step function, shared by every cell
+#: of a task) before Dynamo refuses: it raises there
+#: (``fail_on_recompile_limit_hit``), where by default it would run the
+#: frame uncompiled without a word
+RECOMPILE_LIMIT = 64
+
+#: where Inductor (and Triton under it) keeps its compiled kernels on the
+#: card: under the checkout's ``build/`` (listed in ``.gitignore``),
+#: shared by the workers, whatever the environment names
+INDUCTOR_CACHE_DIR = str(BUILD_DIR / "inductor")
 
 
 @dataclasses.dataclass
@@ -112,6 +132,79 @@ class RegressionHook:
                                             device=self.device))
 
 
+class _CountingBackend:
+    """The compile backend ``name``, whose compiled graphs count their
+    calls (``dynamo_counts()["graph_calls"]``): a step call that runs no
+    compiled graph ran uncompiled.  One per device type, so that cells
+    that trace one program share Dynamo's cache entry."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.calls = 0
+
+    def __call__(self, gm, example_inputs):
+        from torch._dynamo import lookup_backend
+        fn = lookup_backend(self.name)(gm, example_inputs)
+
+        def run(*args):
+            self.calls += 1
+            return fn(*args)
+        return run
+
+
+#: the counting backends by device type (``compile_step``)
+_BACKENDS: dict = {}
+
+
+def compile_step(step_fn: Callable, device: DeviceLike) -> Callable:
+    """``torch.compile`` of ``step_fn`` for tensors on ``device``, with the
+    backend ``COMPILE_BACKENDS`` names for it (an unknown device raises),
+    static shapes (each cell its own specialisation) and no fallback:
+    Dynamo raises at ``RECOMPILE_LIMIT`` compiles of one function, and a
+    compile error reaches the caller.  Called under a dispatch mode (an
+    analysis pass, untimed), the callable runs ``step_fn`` uncompiled.  The
+    compile happens at the first call.  For the card it sets
+    ``TORCHINDUCTOR_CACHE_DIR`` and ``TRITON_CACHE_DIR`` to
+    ``INDUCTOR_CACHE_DIR`` and its ``triton`` folder, whatever they
+    named before."""
+    dev = torch.device(device)
+    if dev.type not in COMPILE_BACKENDS:
+        raise ValueError(f"compile_step: no compile backend for device {dev}")
+    from torch import _dynamo
+    _dynamo.config.recompile_limit = RECOMPILE_LIMIT
+    _dynamo.config.fail_on_recompile_limit_hit = True
+    if dev.type == "cuda":
+        os.environ["TORCHINDUCTOR_CACHE_DIR"] = INDUCTOR_CACHE_DIR
+        os.environ["TRITON_CACHE_DIR"] = os.path.join(INDUCTOR_CACHE_DIR, "triton")
+    backend = _BACKENDS.setdefault(dev.type, _CountingBackend(COMPILE_BACKENDS[dev.type]))
+    compiled = torch.compile(step_fn, backend=backend, dynamic=False)
+
+    def step(*args):
+        # a pass under a dispatch mode (the cost analysis) runs the step
+        # itself: Dynamo, entered under one, would leave the step's code
+        # uncompiled for good, every later cell of the task included
+        if _get_current_dispatch_mode() is not None:
+            return step_fn(*args)
+        return compiled(*args)
+    return step
+
+
+def dynamo_counts() -> dict:
+    """Dynamo's process-wide tallies: ``frames`` (frames it was asked to
+    compile, a recompile among them), ``graphs`` (graphs it made),
+    ``graph_breaks`` (breaks by reason) and ``graph_calls`` (calls of the
+    graphs ``compile_step``'s backends compiled); zeros before anything
+    compiled."""
+    import sys
+    calls = sum(b.calls for b in _BACKENDS.values())
+    if "torch._dynamo" not in sys.modules:
+        return {"frames": 0, "graphs": 0, "graph_breaks": {}, "graph_calls": calls}
+    from torch._dynamo.utils import counters
+    return {"frames": int(counters["frames"]["total"]),
+            "graphs": int(counters["stats"]["unique_graphs"]),
+            "graph_breaks": dict(counters["graph_break"]), "graph_calls": calls}
+
+
 def prepare(step_fn: Callable, donate: Tuple[int, ...] = (),
             mutable: Tuple[int, ...] = ()) -> Callable:
     """The callable ``measure`` times.  ``mutable`` are the argument slots
@@ -150,7 +243,8 @@ def measure(name: str, step_fn: Callable, args: Tuple, donate: Tuple[int, ...] =
             phase_log: Optional[list] = None,
             events: Optional[list] = None,
             device_trace: Optional[dict] = None,
-            device: Optional[DeviceLike] = None) -> Measurement:
+            device: Optional[DeviceLike] = None,
+            compiled: bool = False) -> Measurement:
     """Paper protocol: median-of-N timing of the computation phase.
 
     ``jitted`` lets a caller (the BenchmarkRunner) pass the prepared
@@ -183,6 +277,11 @@ def measure(name: str, step_fn: Callable, args: Tuple, donate: Tuple[int, ...] =
     ``(phase, wall_t0, wall_t1)`` tuple per protocol phase — "compile"
     (the first call + its synchronize), "warm" (the warmup prefix of the
     loop) and "measure" (the timed iterations).
+
+    A timed call that makes Dynamo compile (a recompile) raises after the
+    loop: its time would be a compile's, not the step's.  ``compiled``
+    says the step is ``compile_step``'s: a timed call that ran none of
+    its compiled graphs ran uncompiled, and raises too.
     """
     if phase_log is not None and device is None:
         raise ValueError("measure(phase_log=...) needs device=: the device the step "
@@ -210,7 +309,10 @@ def measure(name: str, step_fn: Callable, args: Tuple, donate: Tuple[int, ...] =
     tracemalloc.start()
     times = []
     walls = []
+    before = None
     for i in range(warmup + runs):
+        if i == warmup:
+            before = dynamo_counts()
         if events is not None and i == warmup:
             now = time.time()
             events.append(("warm", t_phase, now))
@@ -232,6 +334,13 @@ def measure(name: str, step_fn: Callable, args: Tuple, donate: Tuple[int, ...] =
         events.append(("measure", t_phase, time.time()))
     _, host_peak = tracemalloc.get_traced_memory()
     tracemalloc.stop()
+    after = dynamo_counts()
+    if after["frames"] != before["frames"]:
+        raise RuntimeError(f"{name}: a timed call compiled (Dynamo recompiled the "
+                           f"step): its time is not the compiled step's")
+    if compiled and after["graph_calls"] - before["graph_calls"] < runs:
+        raise RuntimeError(f"{name}: a timed call ran no compiled graph: the "
+                           f"step ran uncompiled")
     dev1 = _device_bytes(devices)
     if phase_log is not None:
         from repro_torch.profiler.attribution import trace_phases
@@ -256,3 +365,39 @@ def measure(name: str, step_fn: Callable, args: Tuple, donate: Tuple[int, ...] =
         device_bytes_delta=int(dev1 - dev0),
         runs=runs,
     )
+
+
+def measure_eager(name: str, step_fn: Callable, args: Tuple, *, runs: int = 3,
+                  hook: Optional[RegressionHook] = None,
+                  device: Optional[DeviceLike] = None) -> Measurement:
+    """Op-by-op timing of the uncompiled step — the eager analogue of
+    ``measure`` for the compiler-mode comparison (the reference's
+    ``jax.disable_jit`` protocol): one warm call, then ``max(2, runs)``
+    timed calls, each ended by a synchronize of the cards of ``args`` (and
+    ``device``).  No compile (``compile_us`` 0), no donation: ``step_fn``
+    is called on ``args`` each time (``prepare`` copies what it updates in
+    place).  ``p10``/``p90`` are the min and max, and the device delta 0,
+    as in the reference."""
+    devices = _cuda_devices(args, set())
+    if device is not None and resolve_device(device).type == "cuda":
+        devices.add(resolve_device(device))
+    step_fn(*args)                # warm
+    _synchronize(devices)
+    tracemalloc.start()
+    times = []
+    for _ in range(max(2, runs)):
+        t0 = time.perf_counter()
+        step_fn(*args)
+        _synchronize(devices)
+        dt = (time.perf_counter() - t0) * 1e6
+        if hook is not None:
+            hook.fire()
+            dt += hook.slowdown_s * 1e6
+        times.append(dt)
+    _, host_peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    arr = np.array(times)
+    return Measurement(
+        name=name, median_us=float(np.median(arr)), mean_us=float(arr.mean()),
+        p10_us=float(arr.min()), p90_us=float(arr.max()), compile_us=0.0,
+        host_peak_bytes=int(host_peak), device_bytes_delta=0, runs=len(times))

@@ -17,8 +17,9 @@ recomputation under ``torch.utils.checkpoint``):
 * the port's own kernels (flash attention forward and backward, the SSD,
   the RG-LRU) launch through ctypes, which no dispatch mode sees: each
   call reports its kernel's ``cost()`` to the pass as attention work
-  (``kernels.accounting``), and the aten ops of its plain version on the
-  CPU are not counted again.
+  (``kernels.accounting``, from inside the custom op), and neither the op
+  itself nor the aten ops of its plain version on the CPU are counted
+  again.
 
 ``HloCost`` keeps the reference's fields and invariants:
 ``sum(flops_by_class) == flops`` and ``sum(bytes_by_class) ==
@@ -38,7 +39,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.kernels.accounting import accounting
+from repro_torch.kernels.accounting import accounting, is_kernel_op
 
 #: time-attribution op classes (profiler subsystem, src/repro_torch/profiler/):
 #:   matmul      matrix products (cuBLAS on the card)
@@ -88,18 +89,30 @@ _KERNEL_MATMUL = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "sm90_", "sm80_",
                   "splitkreduce", "cublas")
 _KERNEL_ELEMENTWISE = ("elementwise", "vectorized", "unrolled", "copy", "cast",
                        "multi_tensor_apply", "memcpy", "memset", "fill")
+# Inductor's generated Triton kernels by kind: pointwise, reduction,
+# persistent reduction, template (a matrix product of max-autotune)
+_INDUCTOR_RE = re.compile(r"(?<![a-z])triton_(poi|red|per|tem)_")
+_INDUCTOR_CLASS = {"poi": "elementwise", "red": "other", "per": "other", "tem": "matmul"}
 
 
 @functools.lru_cache(maxsize=4096)
 def op_class(name: str) -> str:
     """The attribution class (see OP_CLASSES) of an aten op, named
     ``aten::mm`` or ``aten.mm.default``, or of a CUDA kernel, named as
-    ``torch.profiler`` reports it (a demangled signature)."""
+    ``torch.profiler`` reports it (a demangled signature).  A compiled
+    step's kernels: Inductor's Triton kernels by their kind
+    (``triton_poi_*`` pointwise: elementwise; ``triton_red_*`` and
+    ``triton_per_*`` reductions: other; ``triton_tem_*`` a template
+    product: matmul), and the library calls its code makes
+    (``extern_kernels.mm``) as the aten op of that name."""
     if _COLLECTIVE_RE.search(name):
         return "collective"
-    for prefix in ("aten::", "aten."):
+    for prefix in ("aten::", "aten.", "extern_kernels."):
         if name.startswith(prefix):
             return _aten_class(name[len(prefix):].split(".")[0])
+    inductor = _INDUCTOR_RE.search(name)
+    if inductor:
+        return _INDUCTOR_CLASS[inductor.group(1)]
     if _PORT_KERNEL_RE.search(name):
         return "attention"
     low = name.lower()
@@ -172,7 +185,7 @@ class _StepCost(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self.depth == 0:
+        if self.depth == 0 and not is_kernel_op(func):
             self._tally(func, args, kwargs, out)
         return out
 

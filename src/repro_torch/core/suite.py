@@ -7,6 +7,8 @@ ported.  On the card, training runs the dense family only: the ssm and
 hybrid families' kernels (SSD, RG-LRU) have no backward yet, and their
 CUDA launches raise under autograd (ROADMAP Queue 1); the vlm and encdec
 families do not train yet on either device (``Model.loss`` raises).
+``make`` raises those refusals for a train entry before it builds a state,
+so a refused cell compiles nothing.
 """
 from __future__ import annotations
 
@@ -97,6 +99,7 @@ class Benchmark:
             from repro_torch.launch.steps import make_train_step
             from repro_torch.models.model import Model
             from repro_torch.optim.adamw import adamw_init
+            _refuse_training(cfg, model.device)
             # the state's own model over a copy of the weights: the state
             # is updated in place, and the cached Built must stay valid
             # (and grad-free) for the other tasks of this arch
@@ -111,6 +114,23 @@ class Benchmark:
         model.prefill(batch_dict, cache)
         return ((lambda m, t, c: m.decode_step(t, c)),
                 (model, toks[:, :1].contiguous(), cache), (2,))
+
+
+#: the kernel whose missing backward refuses each family's training on the
+#: card
+_CARD_BACKWARDLESS = {"ssm": "ssd", "hybrid": "rglru"}
+
+
+def _refuse_training(cfg, device: torch.device) -> None:
+    """Raise, before a state is built or a step compiled, the error the
+    step itself would raise: a family without a loss (``Model.loss``), or
+    on the card a kernel without a backward (``kernels.library``)."""
+    from repro_torch.kernels.library import no_backward_error
+    from repro_torch.models.model import UNTRAINED_FAMILIES, untrained_family_error
+    if cfg.family in UNTRAINED_FAMILIES:
+        raise untrained_family_error(cfg)
+    if device.type == "cuda" and cfg.family in _CARD_BACKWARDLESS:
+        raise no_backward_error(_CARD_BACKWARDLESS[cfg.family])
 
 
 def get_benchmark(arch: str, task: str) -> Benchmark:

@@ -5,8 +5,14 @@ Each kernel package has:
               nvcc at first use by ``build.py``) with ctypes, checks and
               launches it, and counts its launches
   ops.py    — public wrapper: the kernel for CUDA tensors, the plain
-              version for CPU tensors, nothing else
+              version for CPU tensors, nothing else, through the
+              kernel's custom op
   ref.py    — the plain PyTorch version the kernel is held against
+
+``library.py`` registers the kernels (and the flash backward) as
+``torch.library`` custom ops, ``torch.ops.repro_torch.*``: the kernel
+launch as the CUDA implementation, the plain version as the CPU one, a
+fake for ``torch.compile``, which keeps each call one opaque op.
 
 Ported: flash attention (K1), the Mamba-2 SSD chunked scan (K2) and the
 RG-LRU scan (K3): every Pallas kernel of the reference has its

@@ -13,8 +13,17 @@ CPU the same calls run their plain versions as many aten ops.
   attention (``profiler.attribution.trace_device_time``; on the card the
   kernels' own names say so).
 
-Outside both a scope costs two checks, and ``cost`` is not called (on
-the card it may read per-row offsets back from the device).
+Where scopes open: inside the implementations of the custom ops
+``kernels/library.py`` registers (namespace ``OP_NAMESPACE``), the CUDA
+launch on the card and the plain version on the CPU, and nowhere else.
+An op's implementation runs when the op runs, never while
+``torch.compile`` traces a step (the trace sees the op's fake), so a
+scope's checks and ``cost()``, which may read per-row offsets back from
+the device, stay out of every compiled graph, and a compiled step's calls
+are counted as an eager step's.  The passes' modes see the op call
+itself too and leave it to the scope.
+
+Outside both a scope costs two checks, and ``cost`` is not called.
 
 The open passes are a process-wide list, not thread-local state: on the
 card autograd runs the backward, and so the backward kernel's scope, on
@@ -29,6 +38,15 @@ import torch
 
 #: a CPU trace's range of one plain-version kernel call starts with this
 SCOPE_PREFIX = "repro_torch.kernel::"
+
+#: the namespace of the kernels' custom ops (``torch.ops.repro_torch``)
+OP_NAMESPACE = "repro_torch"
+
+
+def is_kernel_op(func) -> bool:
+    """Whether ``func`` (an op a dispatch or torch-function mode sees) is
+    one of the kernels' custom ops, which report through their scope."""
+    return getattr(func, "namespace", None) == OP_NAMESPACE
 
 #: the analysis passes open now, innermost last
 _passes: List = []

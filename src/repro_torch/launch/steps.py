@@ -4,10 +4,21 @@
 in the reference.  The train step is ``(state, batch) -> (state,
 metrics)`` with ``state = (model, OptState)``: the model holds the
 weights as parameters that require grad, and the state's moments keep
-the reference's stacked layout.  PyTorch runs eagerly, so a step is a
-plain function; it updates the model and the moments in place (the
-reference donates them) and returns the same objects with a new step
-count.
+the reference's stacked layout.  A step is a plain function; it updates
+the model and the moments in place (the reference donates them) and
+returns the same objects with a new step count.
+
+Under ``torch.compile`` (``core.harness.compile_step``, the ``jit*``
+modes) the train step compiles into two graphs, with one graph break
+left, at ``loss.backward()`` (Dynamo does not trace ``Tensor.backward``):
+the forward to the loss, whose AOT-autograd backward ``backward()`` runs
+(the flash-attention backward op inside it), and the gradients' AdamW
+update after it.  The moments' per-parameter views are taken before the
+break, so the update graph updates them in place as its inputs; taken
+after it, the stacked moments were its inputs and their updated copies
+its temporaries, 18 GB more than eager at gemma-2b's width.  With ``microbatches`` > 1 each microbatch's
+``backward()`` breaks the graph once more.  The prefill and decode steps
+compile into one graph each, with no break.
 """
 from __future__ import annotations
 
@@ -67,9 +78,13 @@ def make_train_step(cfg, hyper: TrainHyper = TrainHyper(),
 
     def train_step(state, batch):
         model, opt = state
+        # the moments' per-parameter views, taken before the backward: a
+        # compiled step's update graph gets them as its inputs, which it
+        # updates in place (taken in that graph, the stacked moments would
+        # be its inputs, and their updated copies its temporaries)
+        moments = OptState(opt.step, model.leaf_views(opt.mu), model.leaf_views(opt.nu))
         grads, metrics = grads_of(model, batch)
         lr = cosine_schedule(opt.step, hyper.warmup_steps, hyper.total_steps, hyper.lr)
-        moments = OptState(opt.step, model.leaf_views(opt.mu), model.leaf_views(opt.nu))
         _, moments, om = adamw_update(list(model.parameters()), grads, moments,
                                       opt_cfg, lr=lr)
         for p in model.parameters():    # no gradient lives between steps

@@ -49,11 +49,23 @@ leaf and layer index in the reference's stacked tree, and ``leaf_views``
 gives the matching views of any tree of that layout (the optimizer's
 moments).
 
+Under ``torch.compile`` (the runner's ``jit*`` modes): with
+``cfg.scan_layers`` (the default, the reference's ``lax.scan`` over the
+stacked layers) each layer runs through its kind's nested compile region
+(``_region``: one per module class and layer kind, so gemma3's local and
+global layers, whose windows differ, each have their own), so a compiled
+step traces one body per kind, the layer's remat inside it, and every
+layer of the kind reuses it; with
+``scan_layers=False`` (``jit_unrolled``) every layer is traced inline.
+Run eagerly, the two are the same calls.  The layers' kernels are
+custom ops (``kernels/library.py``), opaque to the compiler.
+
 The moe family and MLA come with their modules (ROADMAP Queue 1, items
 6-7).
 """
 from __future__ import annotations
 
+import functools
 import math
 from functools import partial
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -370,6 +382,38 @@ def _remat(fn, mode: str):
     raise ValueError(f"unknown remat {mode!r} (none | full | dots)")
 
 
+@functools.lru_cache(maxsize=None)
+def _region(cls: type, kind: str):
+    """The forward of the layers of module class ``cls`` and layer kind
+    ``kind`` (``_layout``'s) as one nested compile region
+    (``torch.compiler.nested_compile_region``): under ``torch.compile`` it
+    is traced once and every layer of that kind reuses it, the counterpart
+    of the reference's ``lax.scan`` over the stacked layers
+    (``scan_layers=True``).  The layers of one kind differ only in their
+    weights and caches, which are the region's inputs; the kind fixes the
+    Python constants a layer reads (its mask, window and prefix), so no
+    reuse rests on a constant traced from another kind.  Run eagerly, it
+    is the forward itself."""
+    @torch.compiler.nested_compile_region
+    def run(blk, remat, x, positions, cache, seq_lens, kw):
+        return _remat(partial(cls.forward, blk), remat)(
+            x, positions=positions, cache=cache, seq_lens=seq_lens, **kw)
+    return run
+
+
+#: the families whose loss is not ported (the reference predicts the text
+#: tokens only, the vlm prefix sliced off, and encodes the frames under the
+#: loss)
+UNTRAINED_FAMILIES = ("vlm", "encdec")
+
+
+def untrained_family_error(cfg) -> NotImplementedError:
+    """The refusal of a loss of ``UNTRAINED_FAMILIES``."""
+    return NotImplementedError(
+        f"{cfg.name}: training the {cfg.family} family is not ported "
+        f"yet (ROADMAP Queue 1, item 15: the vlm and encdec loss)")
+
+
 class Model(nn.Module):
     """The model over a param tree in the reference's layout (the stacked
     leaves carry their layer axes)."""
@@ -396,6 +440,9 @@ class Model(nn.Module):
             else:
                 blocks.append(Block(cfg, p, kind))
         self.blocks = nn.ModuleList(blocks)
+        # each layer's region, made here: the decorator is not traced
+        self._regions = [_region(type(b), kind)
+                         for b, (_, _, kind) in zip(blocks, self._layout)]
         if cfg.family == "encdec":
             self.enc_blocks = nn.ModuleList(
                 Block(cfg, _layer(params["enc_blocks"], (i,)), "full")
@@ -440,13 +487,17 @@ class Model(nn.Module):
 
     def _run_layers(self, x, positions, cache, seq_lens=None, remat="none",
                     enc_out=None):
-        for blk, (path, idx, kind) in zip(self.blocks, self._layout):
+        for blk, region, (path, idx, kind) in zip(self.blocks, self._regions,
+                                                  self._layout):
             # per-layer views of the stacked cache: the in-place writes of
             # the layer land in the stacked tensors
             ci = None if cache is None else _layer(_subtree(cache, path), idx)
             kw = {"enc_out": enc_out} if kind == "dec" else {}
-            x = _remat(blk, remat)(x, positions=positions, cache=ci, seq_lens=seq_lens,
-                                   **kw)
+            if self.cfg.scan_layers:
+                x = region(blk, remat, x, positions, ci, seq_lens, kw)
+            else:
+                x = _remat(blk, remat)(x, positions=positions, cache=ci,
+                                       seq_lens=seq_lens, **kw)
         return x
 
     def _inputs(self, batch: Mapping[str, torch.Tensor],
@@ -533,12 +584,8 @@ class Model(nn.Module):
         recomputed in the backward, so the full (B, S, V) fp32 logits never
         exist."""
         cfg = self.cfg
-        if cfg.family in ("vlm", "encdec"):
-            # the reference predicts the text tokens only (the vlm prefix
-            # sliced off) and encodes the frames under the loss
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family is not ported "
-                f"yet (ROADMAP Queue 1, item 15: the vlm and encdec loss)")
+        if cfg.family in UNTRAINED_FAMILIES:
+            raise untrained_family_error(cfg)
         tokens = batch["tokens"]
         x = self._embed(tokens)
         # positions None: each attention layer counts from 0 with an int

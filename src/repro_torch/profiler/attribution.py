@@ -18,6 +18,14 @@ with its op-class costs.
   exactly 1.0 per cell (the acceptance invariant).  Device time of a
   class the costs cannot explain lands in idle, never vanishes.
 
+A compiled cell's trace is the compiled step's: on the card Inductor's
+generated kernels are classed by their kind (``hloanalysis.op_class``:
+``triton_poi_*`` elementwise, the reductions other) beside the port's
+kernels, which stay custom ops inside the graph; on the CPU
+(``aot_eager``) the graph runs the same aten ops as the eager step.  The
+cost (flops and bytes) is the uncompiled step's: ``compile_step`` runs
+the analysis pass's call uncompiled.
+
 ``util`` is the roofline utilization: the cell's analytic device bound
 (``hardware.DEFAULT_HW``, the H100) over its measured device time per
 step.  On the card it is a share of the bound; on the CPU it only ranks

@@ -22,11 +22,15 @@
   when asked (``coverage=True``): ``extra["cov_*"]`` (``core/coverage``).
 
 Runs ``train``, ``infer_prefill``, ``infer_decode`` and ``serve`` cells in
-modes ``jit`` and ``jit_donated`` (see ``scenario.py`` for the mapping);
-other tasks and modes come back as error records naming the ROADMAP item.
-Not ported yet, and raising ``NotImplementedError`` when asked for: span
-tracing (ROADMAP Queue 1, item 12), kernel micro-bench cells, loadgen
-(item 13) and the dry-run tier (item 14).
+every compiler mode (see ``scenario.py`` for the mapping): a step cell in
+a ``jit*`` mode measures ``harness.compile_step`` of its step (compiled
+once per scenario, in the process that runs the cell: nothing compiled
+crosses a process), an ``eager`` cell the step itself
+(``harness.measure_eager``); serve cells run the engine uncompiled.
+``loadgen`` and ``kernel`` cells come back as error records naming the
+ROADMAP item.  Not ported yet, and raising ``NotImplementedError`` when
+asked for: span tracing (ROADMAP Queue 1, item 12) and the dry-run tier
+(item 14).
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from repro_torch.core.harness import RegressionHook, measure, prepare
+from repro_torch.core.harness import (RegressionHook, compile_step, measure,
+                                     measure_eager, prepare)
 from repro_torch.core.hloanalysis import HloCost, analyze_step
 from repro_torch.core.suite import Built, build_arch, get_benchmark
 from repro_torch.device import DeviceLike, device_name, resolve_device
@@ -48,12 +53,12 @@ from repro_torch.profiler.attribution import profile_extra
 from repro_torch.runner.latency import percentile
 from repro_torch.runner.pool import ShardScheduler, _subprocess_env
 from repro_torch.runner.results import ResultStore, RunResult
-from repro_torch.runner.scenario import PORTED_MODES, Scenario, ScenarioMatrix
+from repro_torch.runner.scenario import Scenario, ScenarioMatrix
 from repro_torch.runner.traces import (cache_len_bound, capture_spec,
                                        spec_for_scenario)
 from repro_torch.runner.traces import generate as generate_trace
 
-_MEASURE = "(ROADMAP Queue 1, slice 7: measurement subsystems)"
+_MEASURE = "(ROADMAP Queue 1, item 13c: loadgen; kernel cells: slice 7)"
 
 
 def _unported(**flags) -> None:
@@ -99,8 +104,8 @@ class RunnerStats:
 
 @dataclasses.dataclass
 class _ExecEntry:
-    jitted: Callable                # the prepared step (harness.prepare)
-    step: Callable
+    jitted: Callable                # the prepared (compiled, but for eager) step
+    step: Callable                  # the uncompiled step
     args: Tuple                     # threaded, donation-valid arguments
     donate: Tuple[int, ...]
     mutable: Tuple[int, ...]        # the slots the step updates in place
@@ -211,20 +216,23 @@ class BenchmarkRunner:
             self.stats.executable_cache_hits += 1
             return self._execs[scenario], {"model_reused": True,
                                            "executable_reused": True}
-        if scenario.mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"mode {scenario.mode!r} is not ported yet (ROADMAP Queue 1, "
-                f"slice 7: compilers, eager vs torch.compile)")
         hits0 = self.stats.model_cache_hits
         built = self.built_for(scenario.arch, dtype=scenario.dtype,
                                mode=scenario.mode)
         bench = get_benchmark(scenario.arch, scenario.task)
         step, args, donate = bench.make(batch=scenario.batch, seq=scenario.seq,
                                         built=built)
-        d = donate if scenario.mode == "jit_donated" else ()
-        entry = _ExecEntry(jitted=prepare(step, d, mutable=donate), step=step,
-                           args=args, donate=d, mutable=donate)
-        self.stats.executable_builds += 1
+        if scenario.mode == "eager":
+            # no compiled callable: every call copies what the step updates
+            entry = _ExecEntry(jitted=prepare(step, (), mutable=donate), step=step,
+                               args=args, donate=(), mutable=donate)
+        else:
+            d = donate if scenario.mode == "jit_donated" else ()
+            # the copies of prepare() lie outside the compiled region
+            entry = _ExecEntry(jitted=prepare(compile_step(step, self.device), d,
+                                              mutable=donate),
+                               step=step, args=args, donate=d, mutable=donate)
+            self.stats.executable_builds += 1
         if self.reuse:
             self._execs[scenario] = entry
         return entry, {"model_reused": self.stats.model_cache_hits > hits0,
@@ -251,8 +259,11 @@ class BenchmarkRunner:
         """
         prof = self.profile if profile is None else profile
         if scenario.task in ("loadgen", "kernel"):
-            raise NotImplementedError(f"task={scenario.task!r} is not ported "
-                                      f"yet {_MEASURE}")
+            self.stats.scenarios_run += 1
+            self.stats.errors += 1
+            return self._finalize(RunResult.from_error(
+                scenario, f"NotImplementedError: task={scenario.task!r} is not "
+                          f"ported yet {_MEASURE}", wall_s=0.0), extra, record)
         if self.isolate:
             return self._run_isolated(scenario, hook=hook, runs=runs,
                                       warmup=warmup, record=record,
@@ -266,27 +277,39 @@ class BenchmarkRunner:
             entry, cache = self._resolve(scenario)
             # before the measure, which threads the donated state on
             cov = self._coverage_extra(scenario, entry) if self.coverage else None
-            wu = self.warmup if warmup is None else warmup
-            if not cache.get("executable_reused"):
-                wu += self.compile_warmup
-            final_args: List[Tuple] = []
-            phase_log = [] if prof else None
-            trace: Dict[str, Any] = {}
-            m = measure(scenario.name, entry.step, entry.args, entry.donate,
-                        runs=runs or self.runs, warmup=wu, hook=hook,
-                        jitted=entry.jitted, final_args=final_args,
-                        phase_log=phase_log, device_trace=trace, device=self.device)
-            if self.reuse and final_args:
-                # the donated cache was updated in place and threaded: keep
-                # the threaded args for the next measurement
-                entry.args = final_args[0]
+            if scenario.mode == "eager":
+                m = measure_eager(scenario.name, entry.jitted, entry.args,
+                                  runs=max(2, (runs or self.runs) // 2), hook=hook,
+                                  device=self.device)
+            else:
+                wu = self.warmup if warmup is None else warmup
+                if not cache.get("executable_reused"):
+                    # steady state only after a fresh compile's first calls
+                    wu += self.compile_warmup
+                final_args: List[Tuple] = []
+                phase_log = [] if prof else None
+                trace: Dict[str, Any] = {}
+                m = measure(scenario.name, entry.step, entry.args, entry.donate,
+                            runs=runs or self.runs, warmup=wu, hook=hook,
+                            jitted=entry.jitted, final_args=final_args,
+                            phase_log=phase_log, device_trace=trace, device=self.device,
+                            compiled=True)
+                if self.reuse and final_args:
+                    # the donated cache was updated in place and threaded: keep
+                    # the threaded args for the next measurement
+                    entry.args = final_args[0]
             rr = RunResult.from_measurement(
                 scenario, m, wall_s=time.perf_counter() - t0, cache=cache)
             if cache.get("executable_reused"):
                 rr.compile_us = 0.0
             if cov:
                 rr.extra.update(cov)
-            if prof:
+            if prof and scenario.mode == "eager":
+                # no compiled step to trace, as in the reference
+                rr.extra["prof_skipped"] = "eager"
+            elif prof:
+                # the trace is of the compiled step; the cost pass runs it
+                # under a dispatch mode, where Dynamo runs it uncompiled
                 rr.extra.update(self._profile_extra(
                     scenario, phase_log, trace,
                     lambda: analyze_step(entry.jitted, final_args[0], entry.donate)))

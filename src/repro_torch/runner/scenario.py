@@ -7,18 +7,33 @@ A ``Scenario`` is one fully specified benchmark execution:
 Names, axes and validation are the reference's, so the two packages'
 result stores compare row by row.
 
-How the compiler modes map onto eager PyTorch in the port:
+How the compiler modes map onto PyTorch in the port (the reference's
+mapping is ``repro.core.compilers``: ``eager`` is op-by-op dispatch and
+``jit`` the TorchInductor analogue):
 
-    jit          the step runs eagerly; arguments it updates in place (the
-                 KV cache) are copied at every call, so each call sees the
-                 arguments it was given — what a jitted step without
-                 donation sees
-    jit_donated  the step runs eagerly and updates the cache in place, the
-                 updated cache threaded into the next call (donation)
-    eager, jit_unrolled, jit_noremat
-                 not run yet: they come back as ``status="error"`` records
-                 naming the ROADMAP item (the compilers item, Queue 1,
-                 slice 7: eager vs ``torch.compile``)
+    eager         the step uncompiled, through ``harness.measure_eager``:
+                  one warm call, ``max(2, runs // 2)`` timed calls, no
+                  donation, ``compile_us = 0``; a profiled eager cell
+                  records ``prof_skipped = "eager"``
+    jit           ``torch.compile`` of the step (``harness.compile_step``:
+                  Inductor on the card, ``aot_eager`` on the CPU); the
+                  arguments it updates in place (the KV cache, the train
+                  state) are copied at every call, outside the compiled
+                  region, so each call sees the arguments it was given —
+                  what a jitted step without donation sees
+    jit_donated   compiled; the step updates the cache in place and the
+                  updated state is threaded into the next call (donation)
+    jit_unrolled  compiled with ``scan_layers=False``: the layer loop traced
+                  inline, every layer in the graph (``jit`` compiles each
+                  layer kind's block once, as one nested compile region
+                  that every layer of the kind reuses, the counterpart of
+                  the reference's ``lax.scan``)
+    jit_noremat   compiled with ``remat="none"``
+
+Nothing runs uncompiled under a ``jit*`` name: a compile error, a
+recompile past Dynamo's limit or a timed call that recompiles is an
+error record of the cell.  Serving cells (``task="serve"``) run the
+engine uncompiled in both their modes (ROADMAP Queue 1, item 13c).
 
 ``task="loadgen"`` and ``task="kernel"`` validate here, but the port's
 runner does not run them yet (ROADMAP Queue 1, slice 7).
@@ -45,9 +60,6 @@ KERNEL_MODES = ("jit",)
 SERVE_MODES = ("jit", "jit_donated")
 
 MODES = ("eager", "jit", "jit_donated", "jit_unrolled", "jit_noremat")
-
-#: the modes the port runs (the others become error records)
-PORTED_MODES = ("jit", "jit_donated")
 
 #: reduced-config overrides per mode (applied at arch-build time)
 MODE_OVERRIDES: Dict[str, Dict[str, Any]] = {

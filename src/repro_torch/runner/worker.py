@@ -56,6 +56,14 @@ single-shot worker ends after its one cell anyway and writes its record.
 
 The regression-hook parameters are plain numbers so injected-fault runs
 can be isolated, sharded and clustered too.
+
+**Each worker compiles its own cells.**  A job carries a scenario, never
+a compiled step: the worker's runner compiles a ``jit*`` cell in this
+process (``harness.compile_step``), and its Dynamo cache lives and dies
+with it.  On a card every worker points Inductor's and Triton's caches at
+the checkout's ``build/inductor`` (``harness.INDUCTOR_CACHE_DIR``); whether
+a graph one process compiled loads from there in another is not shown
+(a worker's compile has taken as long as the first one).
 """
 from __future__ import annotations
 

@@ -138,11 +138,11 @@ def test_unported_configs_raise_naming_the_roadmap(change):
 @pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-large-v3"])
 def test_unported_losses_raise_naming_the_roadmap(arch):
     """The vlm and encdec families serve but do not train yet: their loss
-    raises, and so does the suite's train step (an error record through
-    the runner)."""
-    from repro_torch.core.suite import get_benchmark
-    step, (state, batch), _ = get_benchmark(arch, "train").make(batch=1, seq=8, device="cpu")
+    raises, and so does the suite's train entry, before it builds a state
+    or a step (an error record through the runner)."""
+    from repro_torch.core.suite import build_arch, get_benchmark
+    built = build_arch(arch, {}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state[0].loss(batch)
+        built.model.loss({"tokens": torch.zeros((1, 8), dtype=torch.int32)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(state, batch)
+        get_benchmark(arch, "train").make(batch=1, seq=8, built=built)

@@ -281,6 +281,33 @@ def test_train_make_defaults_to_the_card():
         get_benchmark("gemma-2b", "train").make(batch=1, seq=8)
 
 
+@pytest.mark.parametrize("arch,device,words", [
+    ("mamba2-2.7b", "cuda", "ssd: the CUDA kernel has no backward yet"),
+    ("recurrentgemma-9b", "cuda", "rglru: the CUDA kernel has no backward yet"),
+    ("whisper-large-v3", "cuda", "item 15: the vlm and encdec loss"),
+    ("paligemma-3b", "cpu", "item 15: the vlm and encdec loss"),
+    ("mamba2-2.7b", "cpu", None), ("gemma-2b", "cuda", None)])
+def test_train_make_refuses_what_the_step_would(arch, device, words):
+    """A train entry whose step would refuse (a family without a loss; on
+    the card a kernel without a backward) raises that refusal in
+    ``make``, before a state is built or a step compiled; the others
+    pass.  On the CPU the vlm refusal is ``Model.loss``'s own."""
+    from repro_torch.core.suite import _refuse_training
+    cfg = get_arch(arch).reduced()
+    if words is None:
+        _refuse_training(cfg, torch.device(device))
+        return
+    with pytest.raises(NotImplementedError, match=words) as refused:
+        _refuse_training(cfg, torch.device(device))
+    if device == "cpu":
+        built = build_arch(arch, {"n_layers": 2}, device="cpu")
+        with pytest.raises(NotImplementedError) as made:
+            get_benchmark(arch, "train").make(batch=1, seq=8, built=built)
+        with pytest.raises(NotImplementedError) as lost:
+            built.model.loss({"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+        assert str(made.value) == str(lost.value) == str(refused.value)
+
+
 @pytest.mark.parametrize("mode", ["jit", "jit_donated"])
 def test_runner_train_cell_then_serve_is_unchanged(mode):
     runner = BenchmarkRunner(device="cpu", runs=2, warmup=0, compile_warmup=0)
@@ -307,10 +334,39 @@ def test_runner_train_cell_then_serve_is_unchanged(mode):
 
 
 def test_unported_train_modes_are_error_records():
-    runner = BenchmarkRunner(device="cpu", runs=1, warmup=0, compile_warmup=0)
+    """Once refused as error records, ``eager``, ``jit_unrolled`` and
+    ``jit_noremat`` train cells now run, and meet the reference's records
+    of the same names: the compiled modes field for field against the
+    reference runner's, the eager one against the reference's eager
+    protocol (``measure_eager``: runs ``max(2, runs // 2)``, no compile,
+    min and max as p10 and p90, no device delta; a JAX eager train step
+    takes ~12 s a call here, so it is not run), with the state it was
+    given left as it was (none of the three donates)."""
+    from repro.runner.runner import BenchmarkRunner as RefRunner
+    from repro.runner.scenario import Scenario as RefScenario
+    runner = BenchmarkRunner(device="cpu", runs=2, warmup=0, compile_warmup=0)
+    ref_runner = RefRunner(runs=2, warmup=0, compile_warmup=0)
+    same = ("name", "bench", "arch", "task", "batch", "seq", "dtype", "mode", "status",
+            "runs", "schema", "cache")
     for mode in ("eager", "jit_unrolled", "jit_noremat"):
-        rr = runner.run(Scenario(arch="gemma-2b", task="train", batch=1, seq=8, mode=mode))
-        assert rr.status == "error" and "ROADMAP" in rr.error
+        sc = Scenario(arch="gemma-2b", task="train", batch=1, seq=8, mode=mode)
+        rr = runner.run(sc)
+        assert rr.status == "ok", rr.error
+        assert set(rr.to_dict()) == {f.name for f in dataclasses.fields(RefRunResult)}
+        assert rr.p10_us <= rr.median_us <= rr.p90_us
+        state = runner._execs[sc].args[0]
+        if mode == "eager":
+            assert rr.runs == 2 and rr.compile_us == 0.0 and rr.device_bytes_delta == 0
+            assert int(state[1].step) == 0          # copied at every call
+            assert not rr.cache["executable_reused"]
+            continue
+        want = ref_runner.run(RefScenario(arch="gemma-2b", task="train", batch=1,
+                                          seq=8, mode=mode))
+        assert want.status == "ok", want.error
+        for field in same:
+            assert getattr(rr, field) == getattr(want, field), field
+        assert rr.compile_us > 0 and want.compile_us > 0
+        assert int(state[1].step) == 0          # no donation: copied at every call
 
 
 def test_loss_path_hands_attention_int_offsets(monkeypatch):
