@@ -44,7 +44,7 @@ device did not hide and the device's busy time from a kernel trace, that
 time by op class, the step's roofline bound over it (fractions summing to
 1 within 1e-6, 0 < ``prof_util`` <= 1.05, attention time > 0, no
 ``prof_error``), and ranks the findings (``profile_report``).
-Dispatch (``dispatch``, right after the runner's reduced cells): a matrix
+Dispatch (``dispatch``, a part of its own): a matrix
 of the runner's gemma-2b, mamba2-2.7b and recurrentgemma-9b cells (a
 compiled mamba2-2.7b prefill and three serve cells) runs serially, across
 two shard workers (``jobs=2``), across two ``local:2`` cluster workers
@@ -59,8 +59,8 @@ whisper-large-v3 across two shard workers; every cell comes back, those
 four train cells, which the port refuses, are its only ``status`` issues,
 and an injected slowdown is filed) and the
 API-surface coverage of reduced steps (``coverage``: the same torch API
-and ATen op sets on the card as on the CPU, kernels one op each), right
-after dispatch; on the full-width builds, each of the six profiled cells
+and ATen op sets on the card as on the CPU, kernels one op each); on the
+full-width builds, each of the six profiled cells
 is measured ``NOISE_RUNS`` times, the two ``ci_full`` cells
 ``NOISE_RUNS_CI`` times (``noise``: the spread of its median,
 host and device time, and how many clean re-runs the 7% gate would
@@ -71,20 +71,40 @@ spread and a 64 MiB leak a step on the card are filed, and on gemma-2b
 the four phases' walls.
 The compiler modes (``compilers``, slice 8): the Inductor cache under
 ``build/inductor`` is emptied first, so each graph's first compile is
-cold; right after the kernels, in two processes of their own (``PARTS``,
-``chip_smoke.py --part``) beside the main one, which runs dispatch,
-nightly, coverage and the reference checks meanwhile, the paper's Figs. 3-4 matrix (gemma-2b,
-mamba2-2.7b, recurrentgemma-9b, internlm2-20b and whisper-large-v3
-reduced, ``train`` B=2 S=48, all five modes through the runner; the
-train cells the port refuses are error records by name) with its
-``ratio_table``, and mamba2-2.7b's and recurrentgemma-9b's reduced
-prefills under ``eager`` and ``jit``, then ``runner_cell``; and gemma-2b at full width
-(``infer_prefill``, ``infer_decode``, ``train``) compiled against eager:
-equal kernel launches, outputs within 5e-2 (bf16), no timed recompile.
+cold, and every later process loads a graph an earlier one compiled
+(``harness.compile_env``; one ``compile_budget`` line per process that
+compiles: its seconds inside compiles and its cache hits and misses).
+Right after the kernels, five processes of their own (``PARTS``,
+``chip_smoke.py --part``) run beside the main one, which runs nightly,
+coverage, ``loadgen``, ``serve_compiled_reduced`` and the reference
+checks meanwhile: the paper's
+Figs. 3-4 matrix (gemma-2b, mamba2-2.7b, recurrentgemma-9b,
+internlm2-20b and whisper-large-v3 reduced, ``train`` B=2 S=48, all five
+modes through the runner; the train cells the port refuses are error
+records by name) with its ``ratio_table``, and mamba2-2.7b's and
+recurrentgemma-9b's reduced prefills under ``eager`` and ``jit``;
+``runner_cell``; ``dispatch``; gemma-2b's
+full-width ``infer_prefill`` and ``infer_decode`` compiled against eager,
+then the serve CLI's engine compiled at full width (``serve_warm_full``:
+the cold compile of the graphs the timed serve phases load); and
+gemma-2b's full-width ``train`` compiled against eager (54 GB at its
+peak, beside the inference part's 11 GB): equal kernel launches, outputs
+within 5e-2 (bf16), no timed recompile.
+Serving (slice 9): every serve cell of the runner compiles its engine's
+decode step and admission; ``loadgen`` sweeps the reference's fast load
+curve (gemma-2b reduced, four loads, both admission policies) with its
+knees, ``slots="auto"`` and a split across two workers;
+``serve_compiled_reduced`` holds the reduced fp32 gemma-2b and
+mamba2-2.7b engines compiled against uncompiled (digests equal, logits
+within 1e-4); gemma-2b's serve CLI runs compiled at full width, and
+``serve_compiled_full`` holds a compiled engine against an uncompiled
+one on its trace (launches by variant, the first decode step's logits
+within 5e-2 from the same state, tok/s, TTFT, per-token latency) before
+the compiled engine's profile (``profile_cell_full``).
 The compiled gemma-2b train step is also held to the eager backward's
 gradient norm, to a falling loss over its calls and, both ways, to
-``TRAIN_MEMORY_LIMIT``.  The timed full-width phases run after both parts
-have ended.
+``TRAIN_MEMORY_LIMIT``.  The timed full-width phases run after every
+part has ended.
 The runner's phases (``runner_cell``, ``dispatch``, ``nightly``) compile
 their step cells too, at the matrix's shapes; for the time limit they
 run fewer cells than before and the full-width phases of every model but
@@ -93,7 +113,9 @@ prints the runner phases' walls beside the uncompiled ones).  The
 reduced gemma-2b, gemma3-12b and nemotron-4-15b train steps run on the
 card against the CPU (``train_reference_check``).  The harness phases
 (``step_full``, ``train_full``, ``profile_cell_full``, ``noise``,
-``ci_full``) measure the uncompiled step and say ``"compiled": false``.
+``ci_full``) measure the uncompiled step and say ``"compiled": false``;
+the serve phases of the cut-depth models serve through an uncompiled
+engine.
 One JSON line per phase (``t_s``: seconds since the start); the last line is the
 ``{"ok": true, "device": ...}`` summary.  Any failed phase raises and the
 script exits non-zero, printing no summary; so it does without a card, and
@@ -799,8 +821,8 @@ RUNNER_WALLS_BEFORE = {"runner": None, "dispatch": [80.0, 69.7], "nightly": [43.
 
 # the runner's compiled step cells (B=2, S=48, the Figs. 3-4 matrix's
 # shapes): the mamba2-2.7b and recurrentgemma-9b prefill cells, whose
-# graphs the compilers phase compiled through the same runner (Dynamo's
-# cache serves them); every arch's serve cell runs uncompiled.  gemma-2b's
+# graphs the compilers and dispatch parts compile too (Inductor's cache
+# serves the later ones); every arch's serve cell compiles its engine.  gemma-2b's
 # train cell of the same shape and mode is the matrix's own
 # (``phase_compilers``), not run twice.  The other step cells, each a cold
 # TorchInductor compile of 12-25 s on the H100 (PERF.md §5), are cut for
@@ -810,20 +832,25 @@ RUNNER_SHAPE = dict(batch=2, seq=48)
 
 
 def phase_runner(smi, runner):
-    """The runner's cells on the card through ``runner`` (the compilers
-    phase's, which it closes after): the step cells of
-    ``RUNNER_STEP_CELLS`` and every arch's serve cell, each ok."""
+    """The runner's cells on the card through ``runner``, which it closes
+    after: every arch's serve cell (its engine compiled) and the step cells
+    of ``RUNNER_STEP_CELLS``, each ok."""
     from repro_torch.runner import Scenario
-    for arch in ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b", "gemma3-12b",
-                 "nemotron-4-15b", "internlm2-20b", "paligemma-3b", "whisper-large-v3"):
-        for task, kw in ([(t, RUNNER_SHAPE) for t in RUNNER_STEP_CELLS.get(arch, ())]
-                         + [("serve", dict(batch=8, seq=32))]):
-            sc = Scenario(arch=arch, task=task, **kw)
-            rr = runner.run(sc)
-            emit("runner_cell", scenario=sc.name, status=rr.status, median_us=rr.median_us,
-                 compile_us=rr.compile_us, error=rr.error, compiled=task != "serve",
-                 prov_device=rr.extra.get("prov_device"))
-            check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
+    archs = ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b", "gemma3-12b",
+             "nemotron-4-15b", "internlm2-20b", "paligemma-3b", "whisper-large-v3")
+    # the prefill cells last: by then the dispatch and compilers parts have
+    # compiled their graphs, which then load from Inductor's cache
+    for arch, task, kw in ([(a, "serve", dict(batch=8, seq=32)) for a in archs]
+                           + [(a, t, RUNNER_SHAPE) for a in archs
+                              for t in RUNNER_STEP_CELLS.get(a, ())]):
+        sc = Scenario(arch=arch, task=task, **kw)
+        rr = runner.run(sc)
+        compiled = rr.extra.get("compiled", rr.mode != "eager")
+        emit("runner_cell", scenario=sc.name, status=rr.status, median_us=rr.median_us,
+             compile_us=rr.compile_us, error=rr.error, compiled=compiled,
+             prov_device=rr.extra.get("prov_device"))
+        check(rr.status == "ok", f"runner cell {sc.name}: {rr.error}")
+        check(compiled, f"runner cell {sc.name} ran uncompiled")
     runner.close()
     _free_card()
 
@@ -842,6 +869,28 @@ DISPATCH_MATRIX = dict(archs=("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b"),
                        exclude=(r"^(gemma-2b|recurrentgemma-9b)/infer_",
                                 r"/infer_prefill/(b4|b2/s32)/", r"/serve/(b2|b4/s48)/"))
 DISPATCH_PROFILED = dict(arch="gemma-2b", task="serve", batch=4, seq=32, slots=2)
+
+
+def _emit_budget(process, budget, **kw):
+    """One ``compile_budget`` line: a process's seconds inside compiles by
+    phase, graphs made and Inductor's FX-graph and AOT-autograd cache hits,
+    misses and bypasses (``harness.compile_budget``)."""
+    emit("compile_budget", process=process, **kw, **budget)
+
+
+def _worker_budgets(phase, records):
+    """The ``compile_budget`` line of each worker process among
+    ``records`` (a worker's records carry its running account: the last
+    one counts), and those budgets."""
+    last = {}
+    for rr in records:
+        b = rr.extra.get("compile_budget")
+        if b and rr.extra.get("isolated") and (
+                b["pid"] not in last or b["graphs"] >= last[b["pid"]]["graphs"]):
+            last[b["pid"]] = b
+    for b in last.values():
+        _emit_budget("worker", b, in_phase=phase)
+    return list(last.values())
 
 
 def _pid_alive(pid):
@@ -901,7 +950,10 @@ def phase_dispatch(smi):
                  measure_fence=runner.measure_fence,
                  worker=rr.extra.get("shard", rr.extra.get("host")),
                  tokens_digest=rr.extra.get("tokens_digest"),
+                 compiled=rr.extra.get("compiled", rr.mode != "eager"),
                  prov_device=rr.extra.get("prov_device"), card=smi)
+    budgets = _worker_budgets("dispatch", [rr for way in ("jobs=2", "local:2")
+                                           for rr in ways[way]] + [iso, prof_worker])
     prof_keys = {k for k in prof_serial.extra if k.startswith("prof_")}
     worker_keys = {k for k in prof_worker.extra if k.startswith("prof_")}
     attention_us = prof_worker.extra.get("prof_class_us", {}).get("attention", 0.0)
@@ -934,7 +986,113 @@ def phase_dispatch(smi):
           f"{sorted(prof_keys - worker_keys)}, worker only {sorted(worker_keys - prof_keys)}")
     check(attention_us > 0, "dispatch profile: no attention time in the worker's trace")
     check(not left and not alive, f"dispatch: workers left after close: {left}, {alive}")
+    # every graph a worker compiles, the serial run compiled first: each
+    # must load from Inductor's disk cache (checked at the script's end)
+    return [f"dispatch worker {b['pid']}: {b['fxgraph_cache']['miss']} FX-graph cache "
+            f"misses" for b in budgets if b["fxgraph_cache"]["miss"] or not b["graphs"]]
 
+
+
+# the reference's fast load sweep (``benchmarks/loadgen_curve.py:36-49``):
+# gemma-2b's reduced fp32 cells, bursty arrivals and bimodal prompts, 8
+# requests of prompt 8 on 4 slots, four offered loads, both admission
+# policies, each engine compiled (``jit_donated``)
+LOADGEN_SWEEP = dict(archs=("gemma-2b",), tasks=("loadgen",), batches=(8,), seqs=(8,),
+                     slots=(4,), traces=("bursty+bimodal",), loads=(0.5, 1.0, 2.0, 4.0),
+                     admissions=("batched", "single"))
+# the load whose cell is also split across two shard workers
+LOADGEN_SPLIT_LOAD = 2.0
+LOADGEN_CURVE = os.path.join(ROOT, "build", "chip_smoke_loadgen_curve.json")
+
+
+def phase_loadgen(smi):
+    """The load generator on the card (``task="loadgen"``, the reference's
+    ``benchmarks/loadgen_curve.py --fast``): ``LOADGEN_SWEEP`` through the
+    runner, every cell ok and every cell's tokens the same across loads
+    and policies; each policy's knee (``find_knee``) and the curve, in the
+    reference's layout, at ``LOADGEN_CURVE``; ``ScenarioMatrix(slots=
+    ("auto",))`` expanded against that curve resolves a width with no
+    fallback; the ``LOADGEN_SPLIT_LOAD`` cell split ``0/2`` and ``1/2``
+    across two shard workers (``jobs=2``) gives shards whose tokens,
+    together, are the unsplit cell's.  Returns the workers' compile
+    budgets."""
+    from repro_torch.runner import BenchmarkRunner, ScenarioMatrix
+    from repro_torch.runner.loadgen import (CURVE_PATH_ENV, CURVE_SCHEMA, DEFAULT_SLOTS,
+                                            find_knee, parse_split)
+    t0 = time.perf_counter()
+    runner = BenchmarkRunner(device="cuda")
+    try:
+        out = runner.run_matrix(ScenarioMatrix(**LOADGEN_SWEEP))
+        sweep_s = time.perf_counter() - t0
+        shards = runner.run_matrix(ScenarioMatrix(**dict(
+            LOADGEN_SWEEP, loads=(LOADGEN_SPLIT_LOAD,), admissions=("batched",),
+            splits=("0/2", "1/2"))), jobs=2)
+    finally:
+        runner.close()
+    rows = {"batched": [], "single": []}
+    for rr in out:
+        ex = rr.extra
+        emit("loadgen_cell", cell=rr.name, status=rr.status, error=rr.error, card=smi,
+             **{k: ex.get(k) for k in (
+                 "offered_load", "admission", "compiled", "tok_per_s", "ttft_p50",
+                 "ttft_p99", "tok_lat_p50", "tok_lat_p99", "queue_depth_max",
+                 "admit_calls", "admit_batch_max", "admit_shapes", "tokens_digest")},
+             median_us=rr.median_us, compile_us=rr.compile_us)
+        if rr.status == "ok":
+            rows[ex["admission"]].append({"name": rr.name, "load": ex["offered_load"],
+                                          "tok_per_s": ex["tok_per_s"],
+                                          "ttft_p99": ex.get("ttft_p99", 0.0),
+                                          "admit_calls": ex["admit_calls"],
+                                          "tokens_digest": ex["tokens_digest"]})
+    check(all(rr.status == "ok" for rr in out),
+          f"loadgen: cells failed: {[(rr.name, rr.error) for rr in out if rr.status != 'ok']}")
+    digests = {rr.extra["tokens_digest"] for rr in out}
+    curves = {}
+    for adm, pts in rows.items():
+        knee = find_knee(pts)
+        at = next(p for p in pts if p["load"] == knee["knee_load"])
+        curves[adm] = {"knee": knee, "ttft_p99_at_knee": at["ttft_p99"],
+                       "admit_calls_total": sum(p["admit_calls"] for p in pts)}
+    os.makedirs(os.path.dirname(LOADGEN_CURVE), exist_ok=True)
+    with open(LOADGEN_CURVE, "w") as f:
+        json.dump({"schema": CURVE_SCHEMA, "arch": "gemma-2b", "slots": DEFAULT_SLOTS,
+                   "fast": True, "rows": rows["batched"] + rows["single"], "curves": curves,
+                   "comparison": {"digests_match": len(digests) == 1}}, f, indent=1)
+    before = os.environ.get(CURVE_PATH_ENV)
+    os.environ[CURVE_PATH_ENV] = LOADGEN_CURVE
+    try:
+        auto = ScenarioMatrix(**dict(LOADGEN_SWEEP, slots=("auto",)))
+        auto_slots = sorted({sc.slots for sc in auto.expand()})
+        fallback = auto.slots_fallback()
+    finally:
+        if before is None:
+            del os.environ[CURVE_PATH_ENV]
+        else:
+            os.environ[CURVE_PATH_ENV] = before
+    whole = next(rr for rr in out if rr.extra["admission"] == "batched"
+                 and rr.extra["offered_load"] == LOADGEN_SPLIT_LOAD)
+    n = whole.batch
+    union = {}
+    for rr in shards:
+        if rr.status == "ok":
+            i, k = parse_split(rr.extra["split"])
+            union.update(zip(range(i, n, k), rr.extra["tokens"]))
+    budgets = _worker_budgets("loadgen", shards)
+    emit("loadgen", card=smi, cells=len(out), digests=sorted(digests), curves=curves,
+         knee_load_batched=curves["batched"]["knee"]["knee_load"],
+         knee_load_single=curves["single"]["knee"]["knee_load"], curve_path=LOADGEN_CURVE,
+         auto_slots=auto_slots, slots_fallback=fallback,
+         shards=[(rr.name, rr.status, rr.error, rr.extra.get("shard")) for rr in shards],
+         shard_union_equals_whole=[union.get(r) for r in range(n)] == whole.extra["tokens"],
+         sweep_s=sweep_s, seconds_total=time.perf_counter() - t0)
+    check(len(digests) == 1, f"loadgen: tokens differ across loads or policies: {digests}")
+    check(not fallback and len(auto_slots) == 1,
+          f"loadgen: slots='auto' resolved {auto_slots}, fell back {fallback}")
+    check(all(rr.status == "ok" for rr in shards),
+          f"loadgen: shards failed: {[(rr.name, rr.error) for rr in shards]}")
+    check([union.get(r) for r in range(n)] == whole.extra["tokens"],
+          "loadgen: the shards' tokens together are not the unsplit cell's")
+    return budgets
 
 
 # the train cells the port refuses on the card today, each with the words
@@ -1205,8 +1363,9 @@ def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
     """The kernel path against the plain path on a small input: the same
     reduced weights (fp32 compute) on the card and on the CPU give logits
     within 1e-4 and equal greedy serve tokens (bimodal prompts of
-    ``prompt_len`` / 2 and 2 x ``prompt_len`` tokens).  The vlm family's
-    cache holds its patch prefix besides ``max_len``."""
+    ``prompt_len`` / 2 and 2 x ``prompt_len`` tokens; both engines
+    uncompiled).  The vlm family's cache holds its patch prefix besides
+    ``max_len``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -1229,7 +1388,7 @@ def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
     serve_max_len = cache_len_bound(reqs, prefix=prefix)
     digests = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
-        eng = ServeEngine(Built(cfg, model), slots=4, max_len=serve_max_len)
+        eng = ServeEngine(Built(cfg, model), slots=4, max_len=serve_max_len, compiled=False)
         digests[name] = summarize_metrics(eng.run(reqs))["tokens_digest"]
     emit("reference_check", arch=arch, prompt=seq, max_len=max_len + prefix,
          serve_prompt_lens=sorted({len(r.prompt) for r in reqs}),
@@ -1238,6 +1397,126 @@ def phase_reference_check(arch, seq=24, max_len=32, prompt_len=16):
          digest_cpu=digests["cpu"], digest_cuda=digests["cuda"])
     check(err <= 1e-4, f"{arch}: card vs CPU logits differ by {err}")
     check(digests["cpu"] == digests["cuda"], f"{arch}: card vs CPU serve tokens differ")
+
+
+def phase_serve_compiled_reduced(smi):
+    """The serve engine compiled (TorchInductor) against uncompiled on the
+    card at reduced fp32 gemma-2b and mamba2-2.7b (TF32 off; mamba2's
+    admission runs the SSD op inside a compiled graph), on
+    ``phase_reference_check``'s serve trace (``_serve_compiled_reduced``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.suite import Built
+    from repro_torch.models import build_model
+    from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
+    for arch in ("gemma-2b", "mamba2-2.7b"):
+        cfg = get_arch(arch).reduced(compute_dtype=torch.float32)
+        reqs = generate(TraceSpec(profile="bursty", requests=8, prompt_len=16, max_new=8,
+                                  prompt_profile="bimodal"), vocab=cfg.vocab)
+        _serve_compiled_reduced(arch, Built(cfg, build_model(cfg, device="cuda", seed=0)),
+                                reqs, cache_len_bound(reqs), smi)
+
+
+def _serve_launches():
+    """Each kernel's launches by variant since the last ``_reset_counts``."""
+    return {"flash_attention": _read_variants(), "ssd": _read_ssd_variants(),
+            "rglru": _read_rglru_variants()}
+
+
+def _serve_pair(built, reqs, max_len, slots=4):
+    """``ServeEngine`` on ``built`` compiled and uncompiled over ``reqs``,
+    each engine a warm replay (the compiles) and a counted one: per way the
+    engine, its counted replay's metrics, its launches by variant, the
+    first decode step's logits over the first wave (``_first_wave``),
+    Dynamo's graphs and breaks of its warm replay, the seconds compiled
+    (``compile_budget``), the warm replay's wall and the counted replay's
+    ``admit_new_shapes``; for the compiled way also the first decode
+    step's logits from the uncompiled engine's admitted state and tokens
+    (``logits_same_state``), its admission's largest difference from that
+    state, and whether the first tokens agree."""
+    import torch
+    from repro_torch.core.harness import clone_tree, compile_budget, dynamo_counts
+    from repro_torch.launch.serve import ServeEngine, summarize_metrics
+    got = {}
+    for compiled in (True, False):
+        engine = ServeEngine(built, slots=slots, max_len=max_len, compiled=compiled)
+        c0, b0 = dynamo_counts(), compile_budget()
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        c1, b1 = dynamo_counts(), compile_budget()
+        _reset_counts()
+        out = engine.run(reqs)
+        torch.cuda.synchronize()
+        launches = _serve_launches()
+        got[compiled] = dict(engine=engine, metrics=summarize_metrics(out), out=out,
+                             launches=launches, dynamo=_dynamo_delta(c0, c1),
+                             compile_s=b1["seconds"]["total"] - b0["seconds"]["total"],
+                             fxgraph_cache={k: b1["fxgraph_cache"][k] - b0["fxgraph_cache"][k]
+                                            for k in b1["fxgraph_cache"]},
+                             warm_s=warm_s, new_shapes=out["admit_new_shapes"])
+    # the first decode step over the trace's first wave: each engine from
+    # its own admission, and the compiled step from the uncompiled
+    # engine's admitted state and tokens
+    c, u = got[True], got[False]
+    u_toks = _first_wave(u["engine"], reqs)
+    admitted = clone_tree(u["engine"].cache)
+    u["logits"] = u["engine"]._decode(u_toks).float()
+    c_toks = _first_wave(c["engine"], reqs)
+    c["admission_cache_err"] = max(
+        float((a.float() - b.float()).abs().max())
+        for (_, a), (_, b) in zip(_leaves(c["engine"].cache), _leaves(admitted)))
+    c["first_tokens_equal"] = bool(torch.equal(c_toks, u_toks))
+    c["logits"] = c["engine"]._decode(c_toks).float()
+    c["engine"].cache = clone_tree(admitted)
+    c["logits_same_state"] = c["engine"]._decode(u_toks).float()
+    for g in (c, u):
+        g["engine"]._reset()
+    return got
+
+
+def _first_wave(engine, reqs):
+    """Reset ``engine`` and admit ``reqs``' first wave (its first ``slots``
+    requests by arrival) as ``run()`` would; returns the first tokens, a
+    (slots, 1) tensor for the first decode step."""
+    import numpy as np
+    import torch
+    engine._reset()
+    first = sorted(reqs, key=lambda r: (r.arrival_step, r.rid))[: engine.slots]
+    toks = np.zeros(engine.slots, np.int32)
+    toks[: len(first)] = engine._admit_wave(list(enumerate(first)))
+    # contiguous, as run()'s: another stride would be another graph
+    return torch.from_numpy(toks[:, None].copy()).to(engine.device)
+
+
+def _serve_compiled_reduced(arch, built, reqs, max_len, smi):
+    """The reduced fp32 serve cell of ``phase_reference_check`` on the card
+    compiled (TorchInductor) against uncompiled: equal token digests, the
+    first decode step's logits within ``COMPILED_TOL["fp32"]``, equal
+    launches by variant, no graph break, and a replay that compiles
+    nothing."""
+    got = _serve_pair(built, reqs, max_len)
+    c, u = got[True], got[False]
+    err = float((c["logits"] - u["logits"]).abs().max())
+    emit("serve_compiled_reduced", arch=arch, dtype="fp32", tf32=False, card=smi,
+         logits_same_state_err=float((c["logits_same_state"] - u["logits"]).abs().max()),
+         admission_cache_err=c["admission_cache_err"],
+         first_tokens_equal=c["first_tokens_equal"],
+         compiled_digest=c["metrics"]["tokens_digest"],
+         uncompiled_digest=u["metrics"]["tokens_digest"], logits_max_abs_err=err,
+         tol=COMPILED_TOL["fp32"], launches_compiled=c["launches"],
+         launches_uncompiled=u["launches"], admit_shapes=c["out"]["admit_shapes"],
+         compile_s=c["compile_s"], fxgraph_cache=c["fxgraph_cache"], warm_s=c["warm_s"],
+         replay_new_shapes=c["new_shapes"], **c["dynamo"])
+    check(c["metrics"]["tokens_digest"] == u["metrics"]["tokens_digest"],
+          f"{arch}: compiled serve tokens differ from the uncompiled engine's")
+    check(err <= COMPILED_TOL["fp32"], f"{arch}: compiled serve logits differ by {err}")
+    check(c["launches"] == u["launches"], f"{arch}: compiled serve launches "
+          f"{c['launches']}, uncompiled {u['launches']}")
+    check(c["dynamo"]["graph_breaks"] == 0 and c["dynamo"]["graphs"] > 0
+          and c["new_shapes"] == 0, f"{arch}: compiled serve graphs {c['dynamo']}, "
+          f"{c['new_shapes']} compiled in the replay")
 
 
 def phase_train_reference_check(arch="gemma-2b", steps=2, batch=2, seq=24):
@@ -1619,14 +1898,16 @@ PROFILE_BUSY_OVER_WALL_MAX = 1.05
 
 
 def _profile_record(name, task, extra, median_us, median_us_profiled, profiles,
-                    compile_us=0.0, wall_s=0.0, record_extra=None, trace=None, **line):
+                    compile_us=0.0, wall_s=0.0, record_extra=None, trace=None,
+                    compiled=False, **line):
     """Print one ``profile_cell_full`` line, check the profile, and add the
     cell's record (the runner's layout, which ``detect`` reads) to
-    ``profiles``.  ``trace`` is the measure's ``device_trace``."""
+    ``profiles``.  ``trace`` is the measure's ``device_trace``; ``compiled``
+    says whether the profiled step ran compiled."""
     frac_sum = sum(extra[k] for k in PROF_FRACS)
     trace = trace or {}
     busy_over_wall = trace.get("busy_over_wall_max", 0.0)
-    emit("profile_cell_full", cell=name, task=task, compiled=False, **line,
+    emit("profile_cell_full", cell=name, task=task, compiled=compiled, **line,
          trace_busy_us=trace.get("busy_us"), clamped_samples=trace.get("clamped_samples"),
          busy_over_wall_max=busy_over_wall,
          **{k: extra[k] for k in PROF_KEYS if k in extra}, frac_sum=frac_sum,
@@ -1699,7 +1980,7 @@ def _profile_step_cell(arch, task, built, batch, profiles, perf, seq=2048, ci=Fa
                  bisect=arch == "gemma-2b")
 
 
-def _profile_serve_cell(arch, built, profiles, perf):
+def _profile_serve_cell(arch, built, profiles, perf, engine=None):
     """The serve run's trace (8 requests, 4 slots, prompt 128, 16 new) at
     full width through ``ServeEngine``: a warm replay, an unprofiled one
     and ``NOISE_RUNS`` profiled ones (``run(phase_log=...)``: every decode
@@ -1707,7 +1988,9 @@ def _profile_serve_cell(arch, built, profiles, perf):
     replay measures; admission and prefill are its idle share), then the
     decode step's op-class cost (``decode_probe`` + ``analyze_step``).  The
     first profiled replay is the cell's ``profile_cell_full`` record, all
-    of them its ``noise`` line (median: the replay's ``tok_lat_p50``)."""
+    of them its ``noise`` line (median: the replay's ``tok_lat_p50``).
+    ``engine`` (gemma-2b's: compiled, from ``_serve_compiled_full``) serves
+    the trace if given, else an uncompiled engine on ``built``."""
     from repro_torch.launch.serve import ServeEngine, summarize_metrics
     from repro_torch.core.hloanalysis import analyze_step
     from repro_torch.profiler.attribution import profile_extra
@@ -1717,7 +2000,9 @@ def _profile_serve_cell(arch, built, profiles, perf):
     reqs = generate(TraceSpec(profile="uniform", requests=8, prompt_len=128, max_new=16,
                               seed=0, prompt_profile="fixed"), vocab=cfg.vocab)
     prefix = cfg.n_prefix if cfg.family == "vlm" else 0
-    engine = ServeEngine(built, slots=4, max_len=cache_len_bound(reqs, prefix=prefix))
+    if engine is None:
+        engine = ServeEngine(built, slots=4, max_len=cache_len_bound(reqs, prefix=prefix),
+                             compiled=False)
     t0 = time.perf_counter()
     engine.run(reqs)                     # first calls
     compile_us = (time.perf_counter() - t0) * 1e6
@@ -1744,8 +2029,10 @@ def _profile_serve_cell(arch, built, profiles, perf):
           f"steps, idle {extra.get('prof_idle_us')}")
     _profile_record(name, "serve", extra,
                     base["tok_lat_p50"], sx["tok_lat_p50"], profiles, compile_us=compile_us,
-                    wall_s=wall_s, record_extra=dict(sx, slots=4, trace="uniform"),
+                    wall_s=wall_s, record_extra=dict(sx, slots=4, trace="uniform",
+                                                     compiled=engine.compiled),
                     arch=arch, medians_are="tok_lat_p50 (us)", tok_per_s=sx["tok_per_s"],
+                    compiled=engine.compiled,
                     decode_steps=out["decode_steps"], trace=trace, kernel_calls=cost.notes)
     _noise(name, "serve", [{"median_us": r[1]["tok_lat_p50"], **{
         k: e[k] for k in ("prof_dispatch_us_mean", "prof_device_us_mean")}}
@@ -1811,14 +2098,16 @@ def _serve_cli(arch):
 def _serve_engine(cfg):
     """The CLI's run through ``serve.built_for_cfg`` and ``ServeEngine``
     for a config the CLI cannot name (a cut depth): the same trace, slots
-    and cache bound; returns what ``_serve_cli`` does."""
+    and cache bound, the engine uncompiled; returns what ``_serve_cli``
+    does."""
     from repro_torch.launch import serve
     from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
     built = serve.built_for_cfg(cfg)
     reqs = generate(TraceSpec(profile="uniform", requests=8, prompt_len=128, max_new=16,
                               seed=0, prompt_profile="fixed"), vocab=cfg.vocab)
     prefix = cfg.n_prefix if cfg.family == "vlm" else 0
-    engine = serve.ServeEngine(built, slots=4, max_len=cache_len_bound(reqs, prefix=prefix))
+    engine = serve.ServeEngine(built, slots=4, max_len=cache_len_bound(reqs, prefix=prefix),
+                               compiled=False)
     out = engine.run(reqs)
     m = serve.summarize_metrics(out)
     del built, engine
@@ -1826,6 +2115,71 @@ def _serve_engine(cfg):
             m["tok_per_s"], m.get("ttft_p50", 0.0), m.get("tok_lat_p50", 0.0),
             f"serve.ServeEngine(serve.built_for_cfg(n_layers={cfg.n_layers})), "
             + " ".join(SERVE_ARGV))
+
+
+def _serve_compiled_full(arch, built, per_forward, cli_compile, smi, serve_warm=None):
+    """The serve CLI's trace (8 requests, 4 slots, prompt 128, 16 new) on
+    ``built`` at full width through a compiled ``ServeEngine`` (its graphs
+    from Inductor's cache, which the CLI's compile filled) and an
+    uncompiled one (``_serve_pair``): launches by variant equal between
+    the two and ``per_forward``'s rates (flash ``tc`` a layer per
+    admission forward, ``split`` a layer per decode step), the compiled
+    first decode step's logits within ``COMPILED_TOL["bf16"]`` of the
+    uncompiled one's, both from each engine's own admission and from the
+    same admitted state, the first tokens and the token digests equal, no
+    graph break; tok/s, TTFT and per-token p50 both ways, the admission's
+    cache difference (reported), peak device memory, and
+    the cold compile of the same graphs (``serve_warm``, from the
+    compilers part, else the CLI's).  Returns the compiled engine."""
+    import torch
+    from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
+    reqs = generate(TraceSpec(profile="uniform", requests=8, prompt_len=128, max_new=16,
+                              seed=0, prompt_profile="fixed"), vocab=built.cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    got = _serve_pair(built, reqs, cache_len_bound(reqs))
+    peak = torch.cuda.max_memory_allocated()
+    c, u = got[True], got[False]
+    err = float((c["logits_same_state"] - u["logits"]).abs().max())
+    own_err = float((c["logits"] - u["logits"]).abs().max())
+    fa_pre, fa_dec = per_forward["flash_attention"]
+    cold = serve_warm or dict(compile_seconds=cli_compile["compile_seconds"],
+                              graphs=cli_compile["graphs"],
+                              graph_breaks=cli_compile["graph_breaks"])
+    want = {"tc": fa_pre * c["out"]["admit_calls"], "split": fa_dec * c["out"]["decode_steps"],
+            "simt": 0}
+    ways = {}
+    for way, g in (("compiled", c), ("uncompiled", u)):
+        m = g["metrics"]
+        ways[way] = dict(tok_per_s=m["tok_per_s"], ttft_p50_us=m.get("ttft_p50"),
+                         tok_lat_p50_us=m.get("tok_lat_p50"), tokens_digest=m["tokens_digest"],
+                         launches=g["launches"], warm_replay_s=g["warm_s"])
+    emit("serve_compiled_full", arch=arch, card=smi, n_layers=built.cfg.n_layers,
+         cold_compile_s=cold["compile_seconds"]["total"],
+         cold_compile_seconds=cold["compile_seconds"], cold_graphs=cold["graphs"],
+         cold_graph_breaks=cold["graph_breaks"], cli_compile_s=cli_compile["compile_s"],
+         cli_fxgraph_cache=cli_compile.get("fxgraph_cache"), engine_compile_s=c["compile_s"],
+         engine_fxgraph_cache=c["fxgraph_cache"], engine_graphs=c["dynamo"]["graphs"],
+         engine_graph_breaks=c["dynamo"]["graph_breaks"], expected_flash=want,
+         logits_max_abs_err=err, tol=COMPILED_TOL["bf16"],
+         logits_own_admission_err=own_err,
+         admission_cache_err=c["admission_cache_err"],
+         first_tokens_equal=c["first_tokens_equal"],
+         digests_agree=ways["compiled"]["tokens_digest"] == ways["uncompiled"]["tokens_digest"],
+         replay_new_shapes=c["new_shapes"], max_memory_allocated=peak, **ways)
+    check(c["launches"] == u["launches"] and c["launches"]["flash_attention"] == want,
+          f"{arch}: compiled serve launches {c['launches']}, uncompiled {u['launches']}, "
+          f"expected flash {want}")
+    check(err <= COMPILED_TOL["bf16"] and own_err <= COMPILED_TOL["bf16"],
+          f"{arch}: compiled serve logits differ by {err} from the same state, "
+          f"{own_err} from each engine's own admission")
+    check(c["first_tokens_equal"] and ways["compiled"]["tokens_digest"]
+          == ways["uncompiled"]["tokens_digest"],
+          f"{arch}: the compiled engine's tokens differ from the uncompiled one's")
+    check(c["dynamo"]["graph_breaks"] == 0 and c["new_shapes"] == 0,
+          f"{arch}: compiled serve {c['dynamo']}, {c['new_shapes']} compiled in the replay")
+    check(bool(torch.isfinite(c["logits"]).all()), f"{arch}: compiled serve logits not finite")
+    del got, u
+    return c["engine"]
 
 
 def _param_bytes(cfg):
@@ -1841,7 +2195,7 @@ def _param_bytes(cfg):
 
 
 def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, profile=(),
-                     profiles=None, perf=None, ci=False):
+                     profiles=None, perf=None, ci=False, smi="", serve_warm=None):
     """``arch`` at its full published config (or at ``cfg``, a cut of it),
     random weights from seed 0: its main path (the serve CLI; for a cut
     config the same run through ``ServeEngine``) with every launch count
@@ -1855,8 +2209,14 @@ def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, pro
     ``infer_prefill`` cell (``_ci_full``).
     ``per_forward`` maps each kernel of the path to its launches (per
     prefill forward, per decode step); every other kernel must not launch.
-    Returns the serve run's launch counts and its flash-attention, SSD and
-    RG-LRU launches by variant."""
+    At full depth the serve CLI compiles its engine (its graphs load from
+    Inductor's cache, which ``_warm_serve_full`` filled in the compilers
+    part: ``serve_warm``, that cold compile's account; its line reports
+    the CLI's own compile seconds, graphs, breaks and cache hits), and
+    ``_serve_compiled_full`` then holds a compiled engine on the phase's
+    build against an uncompiled one; a cut config's engine runs
+    uncompiled.  Returns the serve run's launch counts and its
+    flash-attention, SSD and RG-LRU launches by variant."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import harness
@@ -1868,10 +2228,18 @@ def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, pro
     left = _free_card()
     check(left < 1e9, f"{arch}: {left} bytes still allocated before the phase")
     torch.cuda.reset_peak_memory_stats()
+    c0, b0 = harness.dynamo_counts(), harness.compile_budget()
     _reset_counts()                      # main path: the serve run
     (served, tokens, steps, admits, tok_per_s, ttft_p50, tok_p50,
      argv) = _serve_engine(cfg) if cut else _serve_cli(arch)
     counts = _read_counts()
+    b1 = harness.compile_budget()
+    cli_compile = dict(compiled=not cut, compile_s=b1["seconds"]["total"] - b0["seconds"]["total"],
+                       compile_seconds={k: b1["seconds"][k] - b0["seconds"][k]
+                                        for k in b1["seconds"]},
+                       fxgraph_cache={k: b1["fxgraph_cache"][k] - b0["fxgraph_cache"][k]
+                                      for k in b1["fxgraph_cache"]},
+                       **_dynamo_delta(c0, harness.dynamo_counts()))
     variants = _read_variants()
     ssd_variants = _read_ssd_variants()
     rglru_variants = _read_rglru_variants()
@@ -1894,8 +2262,10 @@ def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, pro
          expected_flash_launches_by_variant=expected_variants,
          ssd_launches_by_variant=ssd_variants,
          expected_ssd_launches_by_variant=expected_ssd_variants,
-         rglru_launches_by_variant=rglru_variants)
+         rglru_launches_by_variant=rglru_variants, **cli_compile)
     check(served == 8 and tokens == 8 * 16, f"{arch}: not every request was answered")
+    check(cli_compile["graph_breaks"] == 0 and (cut or cli_compile["graphs"] > 0),
+          f"{arch}: the serve CLI's compile: {cli_compile}")
     check(counts == expected and all(counts[k] > 0 for k in per_forward),
           f"{arch}: launches {counts} for {admits} admission prefills and {steps} "
           f"decode steps (expected {expected})")
@@ -1958,8 +2328,12 @@ def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, pro
         if task in profile:
             _profile_step_cell(arch, task, built, batch, profiles, perf,
                                ci=ci and task == "infer_prefill")
+    engine = None
+    if not cut:
+        engine = _serve_compiled_full(arch, built, per_forward, cli_compile, smi, serve_warm)
     if "serve" in profile:
-        _profile_serve_cell(arch, built, profiles, perf)
+        _profile_serve_cell(arch, built, profiles, perf, engine=engine)
+    del engine
     peak = torch.cuda.max_memory_allocated()
     emit("memory", arch=arch, n_layers=cfg.n_layers, max_memory_allocated=peak,
          limit=memory_limit,
@@ -2145,9 +2519,9 @@ def _compiled_pair(name, step, args, mutable, mode, device, dtype, smi, want_lau
 
 def phase_compilers(smi):
     """The compiler modes on the card (paper §3.2, Figs. 3-4), through the
-    runner and the harness, in two parts, each in a process of its own
+    runner and the harness, in parts, each in a process of its own
     (``PARTS``): the reduced cells (this function) and the full-width cells
-    (``phase_compilers_full``):
+    (``phase_compilers_full``: the inference pairs, and the train pair):
 
     * the Figs. 3-4 matrix (``FIG34_ARCHS`` x ``train``, B=2, S=48, every
       mode), each cell's line with its median, ``compile_us``, host peak,
@@ -2167,8 +2541,7 @@ def phase_compilers(smi):
 
     No timed call may recompile (``harness.measure`` raises).  The Inductor
     cache was emptied at the start of the script, so each graph's first
-    ``compile_us`` is cold.  Returns the phase's wall and its runner, open,
-    for ``phase_runner``."""
+    ``compile_us`` is cold.  Returns the phase's wall."""
     from repro_torch.core.compilers import ratio_table
     from repro_torch.runner import BenchmarkRunner, ScenarioMatrix
     from repro_torch.runner.scenario import MODES, Scenario
@@ -2212,29 +2585,34 @@ def phase_compilers(smi):
         check(per["jit"] == per["eager"] and per["jit"][kernel] > 0,
               f"compilers: {arch} prefill launches a call: jit {per['jit']}, "
               f"eager {per['eager']}")
-    return time.perf_counter() - t0, runner
+    runner.close()
+    return time.perf_counter() - t0
 
 
-def phase_compilers_full(smi):
+def phase_compilers_full(smi, tasks):
     """The full-width part of the compilers phase (``phase_compilers``):
-    gemma-2b's three cells against their eager steps.  Returns their
-    launches, the part's wall and each cell's."""
+    gemma-2b's cells of ``tasks`` (of ``infer_prefill``, ``infer_decode``,
+    ``train``) against their eager steps; with the inference cells, the
+    serve CLI's compiled engine warmed on the same build
+    (``_warm_serve_full``).  Returns their launches, each cell's wall and
+    the warm-up's compile account."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.suite import get_benchmark
     from repro_torch.launch import serve
-    t0 = time.perf_counter()
     cfg = get_arch("gemma-2b")
     built = serve.built_for_cfg(cfg)
     dtype = "bf16" if cfg.compute_dtype == torch.bfloat16 else "fp32"
     n = cfg.n_layers
     none = {"flash_attention_bwd": 0, "ssd": 0, "rglru": 0}
-    walls, launches = {}, {}
+    walls, launches, warm = {}, {}, None
     for task, batch, mode, want, profile in (
             ("infer_prefill", 1, "jit", {"flash_attention": n, **none}, True),
             ("infer_decode", 4, "jit_donated", {"flash_attention": n, **none}, True),
             ("train", 1, "jit_donated", {**none, "flash_attention": 2 * n,
                                          "flash_attention_bwd": n}, False)):
+        if task not in tasks:
+            continue
         tc = time.perf_counter()
         step, args, mutable = get_benchmark("gemma-2b", task).make(batch=batch, seq=2048,
                                                                     built=built)
@@ -2244,33 +2622,95 @@ def phase_compilers_full(smi):
         del step, args
         _free_card()
         walls[task] = time.perf_counter() - tc
+    if "infer_decode" in tasks:
+        tc = time.perf_counter()
+        warm = _warm_serve_full(built, smi)
+        walls["serve_warm"] = time.perf_counter() - tc
     del built
     _free_card()
-    return launches, time.perf_counter() - t0, walls
+    return launches, walls, warm
+
+
+def _warm_serve_full(built, smi):
+    """The serve CLI's engine at full width (its trace, slots and cache
+    bound: ``SERVE_ARGV``), compiled on ``built`` and run once, so that its
+    graphs' first, cold compile lies here and the timed full-width phase's
+    CLI run and ``_serve_compiled_full`` load them from Inductor's cache.
+    Prints and returns the compile's account (seconds by phase, graphs,
+    breaks, cache misses)."""
+    import torch
+    from repro_torch.core.harness import compile_budget, dynamo_counts
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.runner.traces import TraceSpec, cache_len_bound, generate
+    reqs = generate(TraceSpec(profile="uniform", requests=8, prompt_len=128, max_new=16,
+                              seed=0, prompt_profile="fixed"), vocab=built.cfg.vocab)
+    engine = ServeEngine(built, slots=4, max_len=cache_len_bound(reqs))
+    c0, b0 = dynamo_counts(), compile_budget()
+    t0 = time.perf_counter()
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    b1 = compile_budget()
+    warm = dict(wall_s=time.perf_counter() - t0,
+                compile_seconds={k: b1["seconds"][k] - b0["seconds"][k] for k in b1["seconds"]},
+                fxgraph_cache={k: b1["fxgraph_cache"][k] - b0["fxgraph_cache"][k]
+                               for k in b1["fxgraph_cache"]},
+                admit_shapes=out["admit_shapes"], **_dynamo_delta(c0, dynamo_counts()))
+    emit("serve_warm_full", arch="gemma-2b", card=smi, **warm)
+    check(warm["graph_breaks"] == 0 and warm["graphs"] > 0,
+          f"gemma-2b: the full-width serve engine's compile: {warm}")
+    del engine
+    return warm
 
 
 def _part_compilers(smi):
-    """The reduced part of the compilers phase, then ``runner_cell`` through
-    its runner (Dynamo's cache serves the prefill cells' graphs)."""
-    wall, runner = phase_compilers(smi)
+    """The reduced part of the compilers phase: the Figs. 3-4 matrix and
+    the reduced prefills."""
+    return {"compilers_wall": phase_compilers(smi)}
+
+
+def _part_runner(smi):
+    """``runner_cell`` through a runner of its own (the matrix's prefill
+    graphs load from Inductor's cache)."""
+    from repro_torch.runner import BenchmarkRunner
     t0 = time.perf_counter()
-    phase_runner(smi, runner)
-    return {"compilers_wall": wall, "runner_wall": time.perf_counter() - t0}
+    phase_runner(smi, BenchmarkRunner(device="cuda"))
+    return {"runner_wall": time.perf_counter() - t0}
 
 
 def _part_compilers_full(smi):
-    launches, wall, walls = phase_compilers_full(smi)
-    return {"launches": launches, "full_wall": wall, "walls": walls}
+    """gemma-2b's full-width inference pairs and the serve engine's warm
+    compile."""
+    t0 = time.perf_counter()
+    launches, walls, warm = phase_compilers_full(smi, ("infer_prefill", "infer_decode"))
+    return {"launches": launches, "full_wall": time.perf_counter() - t0, "walls": walls,
+            "serve_warm": warm}
+
+
+def _part_dispatch(smi):
+    """``phase_dispatch``; its cache faults go back to the main process,
+    which checks them at the end."""
+    t0 = time.perf_counter()
+    faults = phase_dispatch(smi)
+    return {"dispatch_wall": time.perf_counter() - t0, "cache_faults": faults}
+
+
+def _part_compilers_train(smi):
+    """gemma-2b's full-width train pair (54 GB at its peak, beside the
+    inference part's 11 GB: 66 GB of the card's 80)."""
+    t0 = time.perf_counter()
+    launches, walls, _ = phase_compilers_full(smi, ("train",))
+    return {"launches": launches, "train_wall": time.perf_counter() - t0, "walls": walls}
 
 
 # the compile-bound parts, each run in a process of its own while the main
 # one runs the phases that gate no time (``main``): a cold TorchInductor
-# compile holds one host core for tens of seconds and leaves the card
-# nearly idle, so run one after the other they took ~600 s of the 1200 s
-# limit.  Their medians are taken beside the other processes' work on the
-# card and the host: reported, not gated (no check of this script reads a
-# time of theirs)
-PARTS = {"compilers": _part_compilers, "compilers_full": _part_compilers_full}
+# compile holds one host core for tens of seconds (a reduced graph ~20 s,
+# half of it Triton's kernel builds) and leaves the card nearly idle, so
+# run one after the other they took ~1,500 s.  Their medians are taken
+# beside the other processes' work on the card and the host: reported,
+# not gated (no check of this script reads a time of theirs)
+PARTS = {"compilers": _part_compilers, "runner": _part_runner, "dispatch": _part_dispatch,
+         "compilers_full": _part_compilers_full, "compilers_train": _part_compilers_train}
 
 
 def _start_part(name, smi):
@@ -2283,7 +2723,9 @@ def _start_part(name, smi):
     for path in (out, result):
         if os.path.exists(path):
             os.remove(path)
-    env = dict(os.environ, CHIP_SMOKE_EPOCH=repr(time.time() - (time.perf_counter() - _T0)),
+    from repro_torch.core.harness import compile_env
+    env = dict(os.environ, **compile_env(),
+               CHIP_SMOKE_EPOCH=repr(time.time() - (time.perf_counter() - _T0)),
                CHIP_SMOKE_CARD=smi, CHIP_SMOKE_PARENT=str(os.getpid()))
     with open(out, "w") as f:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--part", name,
@@ -2329,6 +2771,8 @@ def part_main(name, result):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     got = PARTS[name](os.environ["CHIP_SMOKE_CARD"])
+    from repro_torch.core.harness import compile_budget
+    _emit_budget(f"part:{name}", compile_budget())
     with open(result, "w") as f:
         json.dump(got, f)
     return 0
@@ -2377,13 +2821,16 @@ def main():
     # this one runs the phases that gate no time; the timed full-width
     # phases run after both have ended
     t_parts = time.perf_counter()
-    parts = [_start_part(name, smi) for name in ("compilers_full", "compilers")]
+    parts = [_start_part(name, smi) for name in ("compilers_train", "compilers_full",
+                                                  "dispatch", "compilers", "runner")]
     try:
         # the runner's phases, whose step cells compile now (TorchInductor)
         compiled_walls = {}
-        for name, phase in (("dispatch", lambda: phase_dispatch(smi)),
-                            ("nightly", lambda: phase_nightly(smi)),
-                            ("coverage", lambda: phase_coverage(smi))):
+        for name, phase in (("nightly", lambda: phase_nightly(smi)),
+                            ("coverage", lambda: phase_coverage(smi)),
+                            ("loadgen", lambda: phase_loadgen(smi)),
+                            ("serve_compiled_reduced",
+                             lambda: phase_serve_compiled_reduced(smi))):
             t_phase = time.perf_counter()
             phase()
             compiled_walls[name] = time.perf_counter() - t_phase
@@ -2405,7 +2852,9 @@ def main():
     finally:
         for p in parts:
             _stop_part(p)
-    compiled_walls["runner"] = got["compilers"]["runner_wall"]
+    compiled_walls["runner"] = got["runner"]["runner_wall"]
+    compiled_walls["dispatch"] = got["dispatch"]["dispatch_wall"]
+    cache_faults = got["dispatch"]["cache_faults"]
     for name in ("nightly", "coverage"):
         perf["walls"][name] = compiled_walls[name]
     emit("runner_phase_walls", card=smi, walls_s=compiled_walls,
@@ -2413,7 +2862,9 @@ def main():
          beside_the_compilers_parts=True)
     emit("compilers", card=smi, reduced_wall_s=got["compilers"]["compilers_wall"],
          full_wall_s=got["compilers_full"]["full_wall"],
-         full_width_walls_s=got["compilers_full"]["walls"],
+         train_wall_s=got["compilers_train"]["train_wall"],
+         full_width_walls_s={**got["compilers_full"]["walls"],
+                             **got["compilers_train"]["walls"]},
          concurrent_wall_s=time.perf_counter() - t_parts, main_process_wall_s=t_main)
     launches, variants, ssd_variants, rglru_variants = {}, {}, {}, {}
     profiles = []     # the profiled full-width cells' records
@@ -2436,7 +2887,8 @@ def main():
         (launches[arch], variants[arch], ssd_variants[arch],
          rglru_variants[arch]) = phase_full_width(
              arch, per_forward, cfg, profile=profile, profiles=profiles, perf=perf,
-             ci=arch in ("gemma-2b", "mamba2-2.7b"))
+             ci=arch in ("gemma-2b", "mamba2-2.7b"), smi=smi,
+             serve_warm=got["compilers_full"]["serve_warm"])
     for arch, per_forward, cfg in (
             # 1 group of 5 local layers and 1 global
             ("gemma3-12b", {"flash_attention": (6, 6)}, cut("gemma3-12b", n_layers=6)),
@@ -2451,7 +2903,8 @@ def main():
         launches[arch], variants[arch], _, _ = phase_full_width(arch, per_forward, cfg, limit)
     train_launches, train_bwd_variants = phase_train_full(profiles, perf)
     phase_profile_report(profiles)
-    compiled_launches = got["compilers_full"]["launches"]
+    compiled_launches = {**got["compilers_full"]["launches"],
+                         **got["compilers_train"]["launches"]}
     emit("perf_ci", card=smi, walls_s=perf["walls"],
          seconds_total=sum(perf["walls"].values()),
          noise={n["cell"]: dict(spread_rel=n["spread_rel"], false_issues=n["false_issues"],
@@ -2462,6 +2915,10 @@ def main():
                   for c in perf["ci_full"]})
     check(len(perf["noise"]) == 6 and len(perf["ci_full"]) == 2,
           f"perf_ci: {len(perf['noise'])} noise cells, {len(perf['ci_full'])} ci cells")
+    from repro_torch.core.harness import compile_budget
+    _emit_budget("main", compile_budget())
+    check(not cache_faults, f"Inductor's disk cache missed graphs another process compiled: "
+                            f"{cache_faults}")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         dict(_kernel_entry("flash_attention", FA_SOURCE, FA_REPLACES,

@@ -10,15 +10,16 @@
 * a regression-injection hook lets CI create known slowdowns and memory
   bloat.
 
-PyTorch runs eagerly, so there is no compile: the reference's
-``compile_us`` is the first call here (kernel build at first use, library
-handles, allocator warm-up).  Donation becomes in-place update: a step
+A step's first call is its ``compile_us``: ``torch.compile``'s compile
+where the step is ``compile_step``'s, else kernel build at first use,
+library handles and allocator warm-up.  ``compile_budget`` is a process's
+account of its compiles and of Inductor's disk cache.  Donation becomes in-place update: a step
 updates its ``mutable`` arguments in place; donated ones are threaded
 through the calls (``_thread``), the others are copied per call so every
 call sees the arguments it was given (what a jitted step without donation
 sees).  ``measure`` has the reference's profiler and tracing hooks
-(``phase_log``, ``events``); ``measure_eager`` waits for the compiler
-modes (ROADMAP Queue 1, item 13).
+(``phase_log``, ``events``); ``measure_eager`` times the uncompiled step
+for the compiler modes.
 """
 from __future__ import annotations
 
@@ -53,6 +54,14 @@ RECOMPILE_LIMIT = 64
 #: card: under the checkout's ``build/`` (listed in ``.gitignore``),
 #: shared by the workers, whatever the environment names
 INDUCTOR_CACHE_DIR = str(BUILD_DIR / "inductor")
+
+#: ``torch._dynamo.utils.compile_times()`` entries ``compile_budget``
+#: reports, by the name it gives them
+COMPILE_PHASES = {"total": "_compile.compile_inner", "dynamo_trace": "bytecode_tracing",
+                  "backend": "OutputGraph.call_user_compiler",
+                  "aot_autograd": "create_aot_dispatcher_function",
+                  "inductor_codegen": "fx_codegen_and_compile",
+                  "triton_compile_wait": "async_compile.wait"}
 
 
 @dataclasses.dataclass
@@ -159,20 +168,28 @@ _BACKENDS: dict = {}
 def compile_step(step_fn: Callable, device: DeviceLike) -> Callable:
     """``torch.compile`` of ``step_fn`` for tensors on ``device``, with the
     backend ``COMPILE_BACKENDS`` names for it (an unknown device raises),
-    static shapes (each cell its own specialisation) and no fallback:
-    Dynamo raises at ``RECOMPILE_LIMIT`` compiles of one function, and a
-    compile error reaches the caller.  Called under a dispatch mode (an
+    static shapes (each cell its own specialisation), eager's roundings
+    (Inductor's ``emulate_precision_casts``, a setting global to the
+    process: every graph compiled after it rounds so) and no fallback: Dynamo
+    raises at ``RECOMPILE_LIMIT`` compiles of one function, and a compile
+    error reaches the caller.  Called under a dispatch mode (an
     analysis pass, untimed), the callable runs ``step_fn`` uncompiled.  The
     compile happens at the first call.  For the card it sets
     ``TORCHINDUCTOR_CACHE_DIR`` and ``TRITON_CACHE_DIR`` to
     ``INDUCTOR_CACHE_DIR`` and its ``triton`` folder, whatever they
-    named before."""
+    named before (``compile_env`` gives them to workers before they
+    start)."""
     dev = torch.device(device)
     if dev.type not in COMPILE_BACKENDS:
         raise ValueError(f"compile_step: no compile backend for device {dev}")
     from torch import _dynamo
+    from torch._inductor import config as inductor_config
     _dynamo.config.recompile_limit = RECOMPILE_LIMIT
     _dynamo.config.fail_on_recompile_limit_hit = True
+    # a fused chain of bf16 elementwise ops rounds after each op, as the
+    # uncompiled step does (Inductor would round once, at the end: a
+    # bf16 ulp apart from eager, 0.0625 on gemma-2b's softcapped logits)
+    inductor_config.emulate_precision_casts = True
     if dev.type == "cuda":
         os.environ["TORCHINDUCTOR_CACHE_DIR"] = INDUCTOR_CACHE_DIR
         os.environ["TRITON_CACHE_DIR"] = os.path.join(INDUCTOR_CACHE_DIR, "triton")
@@ -187,6 +204,43 @@ def compile_step(step_fn: Callable, device: DeviceLike) -> Callable:
             return step_fn(*args)
         return compiled(*args)
     return step
+
+
+def compile_env() -> dict:
+    """The cache folders a worker process takes from the process that
+    spawns it, so that a graph either compiled loads from Inductor's disk
+    cache in the other.  The cache key also holds the float32 matmul
+    precision (``torch.backends.cuda.matmul.fp32_precision``: ``"none"`` by
+    default, ``"ieee"`` once ``allow_tf32`` was set False, so a worker left
+    at the default missed every graph its parent compiled with TF32 off):
+    the dispatcher passes it in the worker's arguments
+    (``BenchmarkRunner._dispatch_config``)."""
+    return {"TORCHINDUCTOR_CACHE_DIR": INDUCTOR_CACHE_DIR,
+            "TRITON_CACHE_DIR": os.path.join(INDUCTOR_CACHE_DIR, "triton")}
+
+
+def compile_budget() -> dict:
+    """This process's account of its compiles: ``seconds`` inside them by
+    phase (``COMPILE_PHASES``, from ``torch._dynamo.utils.compile_times``:
+    Dynamo's trace, AOT autograd, Inductor's codegen, the wait for Triton's
+    compiles; ``total`` holds them all), the ``graphs`` Dynamo made, and the
+    hits, misses and bypasses of Inductor's FX-graph cache and of AOT
+    autograd's cache; zeros before anything compiled."""
+    import sys
+    out = {"pid": os.getpid(), "graphs": 0,
+           "seconds": dict.fromkeys(COMPILE_PHASES, 0.0),
+           "fxgraph_cache": {"hit": 0, "miss": 0, "bypass": 0},
+           "autograd_cache": {"hit": 0, "miss": 0, "bypass": 0}}
+    if "torch._dynamo" not in sys.modules:
+        return out
+    from torch._dynamo.utils import compilation_time_metrics, counters
+    for name, key in COMPILE_PHASES.items():
+        out["seconds"][name] = round(sum(compilation_time_metrics.get(key, ())), 3)
+    out["graphs"] = int(counters["stats"]["unique_graphs"])
+    for kind in ("hit", "miss", "bypass"):
+        out["fxgraph_cache"][kind] = int(counters["inductor"][f"fxgraph_cache_{kind}"])
+        out["autograd_cache"][kind] = int(counters["aot_autograd"][f"autograd_cache_{kind}"])
+    return out
 
 
 def dynamo_counts() -> dict:

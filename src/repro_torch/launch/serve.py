@@ -19,12 +19,24 @@ into power-of-two buckets and row counts rounded to powers of two;
 per-row masks and gathers in the model make padded rows exact, so tokens
 equal those of ``admission="single"`` (one exact-length call per request).
 
+Compiled, as the reference jits: with ``compiled=True`` (the default, and
+the CLI's) the decode step and the admission call run through
+``harness.compile_step`` (TorchInductor on the card, ``aot_eager`` on the
+CPU, static shapes, no fallback), each engine with code objects of its
+own (``_own_code``), so that its compiled graphs and Dynamo's recompile
+count are its own, as each of the reference's engines holds its own
+``jax.jit`` caches.  The admission call is keyed by its (rows, padded
+length) shape alone: its slot scatter takes a per-slot source row and
+mask of the engine's width.  ``compiled=False`` runs both uncompiled (the
+harness phases that compare the two).
+
 "Donation" in the reference is the port's in-place update: with
 ``donate=True`` the decode step and the admission scatter write into the
-live KV cache; with ``donate=False`` each works on a copy, which the
-engine then keeps.  PyTorch runs eagerly, so nothing is compiled: the
-reference's compiled-shape bookkeeping (``admit_shapes``) is kept as the
-record of which (rows, padded length) prefill shapes ran.
+live KV cache; with ``donate=False`` each works on a copy, made outside
+the compiled call, which the engine then keeps.  ``admit_shapes`` records
+which (rows, padded length) prefill shapes ran; ``admit_new_shapes`` is
+the frames Dynamo compiled during a replay (on an uncompiled engine, the
+shapes first admitted in it).
 
 ``run(..., phase_log=...)`` is the reference's profiler hook (one
 ``(dispatch_s, device_s)`` split per decode step; the device part from a
@@ -40,12 +52,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
+import types
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.harness import clone_tree
+from repro_torch.core.harness import clone_tree, compile_step, dynamo_counts
 from repro_torch.core.suite import Built, build_arch
 from repro_torch.device import DeviceLike
 from repro_torch.models import build_model
@@ -61,6 +74,17 @@ ADMIT_MIN_BUCKET = 8
 
 #: valid values of the engine's ``admission`` policy flag
 ADMISSIONS = ("batched", "single")
+
+
+def _own_code(method):
+    """``method`` on a copy of its function with a code object of its own:
+    Dynamo keeps compiled graphs, and counts compiles against
+    ``harness.RECOMPILE_LIMIT``, per code object, so each engine's count
+    is bounded by its own shapes and its calls check only its own guards."""
+    fn = method.__func__
+    own = types.FunctionType(fn.__code__.replace(), fn.__globals__, fn.__name__,
+                             fn.__defaults__, fn.__closure__)
+    return types.MethodType(own, method.__self__)
 
 
 class ServeEngine:
@@ -79,7 +103,8 @@ class ServeEngine:
     """
 
     def __init__(self, built: Built, *, slots: int, max_len: int,
-                 donate: bool = True, admission: str = "batched"):
+                 donate: bool = True, admission: str = "batched",
+                 compiled: bool = True):
         if admission not in ADMISSIONS:
             raise ValueError(f"unknown admission {admission!r} "
                              f"(known: {ADMISSIONS})")
@@ -90,6 +115,12 @@ class ServeEngine:
         self.max_len = max_len
         self.donate = donate
         self.admission = admission
+        self.compiled = compiled
+        if compiled:
+            self._admit = compile_step(_own_code(self._admit_impl), self.device)
+            self._decode_call = compile_step(_own_code(self._decode_impl), self.device)
+        else:
+            self._admit, self._decode_call = self._admit_impl, self._decode_impl
         # vlm prefill writes n_prefix patch positions ahead of the prompt,
         # so a slot's cache position starts past the prefix after admission
         self._prefix = built.cfg.n_prefix if built.cfg.family == "vlm" else 0
@@ -124,15 +155,19 @@ class ServeEngine:
         return min(b, self.max_len - self._prefix)
 
     def _admit_impl(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                    rows: torch.Tensor, slots: torch.Tensor, cache: dict):
+                    src: torch.Tensor, mask: torch.Tensor, mini: dict,
+                    cache: dict) -> torch.Tensor:
         """One admission call: prefill ``tokens`` (kb, Lpad) with valid
-        prefixes ``lengths`` (kb,) on a fresh kb-row mini cache, then copy
-        mini row ``rows[i]`` into cache row ``slots[i]`` (every leaf along
-        its declared ``cache_batch`` axis: the encdec family's cross keys
-        and values too).  Returns each mini row's first token and the
-        updated cache."""
+        prefixes ``lengths`` (kb,) into ``mini``, a fresh kb-row cache,
+        then write mini row ``src[s]`` into cache row ``s`` wherever
+        ``mask[s]`` (every leaf along its declared ``cache_batch`` axis: the
+        encdec family's cross keys and values too), in place.  ``src`` and
+        ``mask`` span the engine's slots, so the call's shapes are (kb,
+        Lpad) alone.  ``mini`` comes from outside the call: under Inductor
+        the writes that the layers' nested compile regions make into a
+        cache created inside the graph were lost.  Returns each mini row's
+        first token."""
         kb = tokens.shape[0]
-        mini = self.model.init_cache(kb, self.max_len)
         batch = {"tokens": tokens}
         cfg, dev = self.cfg, tokens.device
         # the stubbed front ends' inputs are zeros at serving time
@@ -142,11 +177,12 @@ class ServeEngine:
             batch["frames"] = torch.zeros(kb, cfg.enc_seq, cfg.d_model, device=dev)
         logits, mini = self.model.prefill(batch, mini, lengths=lengths)
         first = logits[:, 0].argmax(dim=-1).to(torch.int32)
-        if not self.donate:
-            cache = clone_tree(cache)
 
         def scatter(big, small, ax):
-            big.index_copy_(ax, slots, small.index_select(ax, rows).to(big.dtype))
+            shape = [1] * big.ndim
+            shape[ax] = self.slots
+            rows = small.index_select(ax, src).to(big.dtype)
+            big.copy_(torch.where(mask.reshape(shape), rows, big))
 
         def walk(big, small, ax):
             if isinstance(big, torch.Tensor):
@@ -156,7 +192,7 @@ class ServeEngine:
                     walk(big[k], small[k], ax[k])
 
         walk(cache, mini, self._cache_axes)
-        return first, cache
+        return first
 
     def _admit_wave(self, pairs: List[Tuple[int, Request]]) -> List[int]:
         """Admit a wave of (slot, request) pairs; returns their first
@@ -182,11 +218,18 @@ class ServeEngine:
             for i, (_, r) in enumerate(grp):
                 tokens[i, : len(r.prompt)] = r.prompt
                 lengths[i] = len(r.prompt)
-            slots = torch.tensor([s for s, _ in grp], device=dev)
-            rows = torch.arange(len(grp), device=dev)
-            first, self.cache = self._admit_impl(
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(lengths).to(dev), rows, slots, self.cache)
+            src = np.zeros((self.slots,), np.int64)
+            mask = np.zeros((self.slots,), bool)
+            for i, (s, _) in enumerate(grp):
+                src[s], mask[s] = i, True
+            # jit (no donation): the call writes into a copy, made outside it
+            cache = self.cache if self.donate else clone_tree(self.cache)
+            first = self._admit(torch.from_numpy(tokens).to(dev),
+                                torch.from_numpy(lengths).to(dev),
+                                torch.from_numpy(src).to(dev),
+                                torch.from_numpy(mask).to(dev),
+                                self.model.init_cache(kb, self.max_len), cache)
+            self.cache = cache
             first = first.cpu().numpy()
             self._admit_calls += 1
             self._admit_batches.append(len(grp))
@@ -197,9 +240,13 @@ class ServeEngine:
                 first_by_slot[s] = int(first[i])
         return [first_by_slot[s] for s, _ in pairs]
 
+    def _decode_impl(self, toks: torch.Tensor, cache: dict):
+        return self.model.decode_step(toks, cache)
+
     def _decode(self, toks: torch.Tensor) -> torch.Tensor:
+        # jit (no donation): the step writes into a copy, made outside it
         cache = self.cache if self.donate else clone_tree(self.cache)
-        logits, self.cache = self.model.decode_step(toks, cache)
+        logits, self.cache = self._decode_call(toks, cache)
         return logits
 
     @contextlib.contextmanager
@@ -208,7 +255,8 @@ class ServeEngine:
         the engine, admits the trace's first wave (its first ``slots``
         requests by arrival, untimed) and yields ``(step, room)``:
         ``step()`` runs one decode step over every slot and its argmax
-        readback, as ``run()`` does, and may be called ``room`` times
+        readback, as ``run()`` does, returns the step's logits, and may be
+        called ``room`` times
         before an admitted row's cache is full.  On exit the engine is
         reset, its record of admitted shapes as it was; the requests are
         not touched."""
@@ -223,7 +271,9 @@ class ServeEngine:
             room = int(min(self.max_len - self.slot_pos[s] for s, _ in pairs))
 
             def step():
-                self._decode(toks)[:, 0].argmax(dim=-1).cpu()
+                logits = self._decode(toks)
+                logits[:, 0].argmax(dim=-1).cpu()
+                return logits
 
             yield step, room
         finally:
@@ -255,6 +305,7 @@ class ServeEngine:
         """
         self._reset()
         shapes0 = len(self._admit_shapes)
+        frames0 = dynamo_counts()["frames"]
         upcoming = sorted(requests, key=lambda r: (r.arrival_step, r.rid))
         for r in upcoming:
             r.out, r.done = [], False
@@ -340,6 +391,10 @@ class ServeEngine:
                     active -= 1
                     done_count += 1
         wall = time.perf_counter() - t0
+        # compiled: Dynamo's own count of the frames this replay compiled
+        # (a new admission shape, or the decode step's first call)
+        new_shapes = (dynamo_counts()["frames"] - frames0 if self.compiled
+                      else len(self._admit_shapes) - shapes0)
         ab = self._admit_batches
         out = {"requests": total, "decode_steps": self.steps,
                "tokens": tokens_out, "wall_s": wall,
@@ -352,8 +407,8 @@ class ServeEngine:
                "admit_batch_mean": (sum(ab) / len(ab)) if ab else 0.0,
                "admit_batch_max": max(ab) if ab else 0,
                "admit_shapes": sorted(list(s) for s in self._admit_shapes),
-               # prefill shapes first run during this replay
-               "admit_new_shapes": len(self._admit_shapes) - shapes0,
+               # shapes first compiled (uncompiled: first run) in this replay
+               "admit_new_shapes": new_shapes,
                "tokens_by_rid": tokens_by_rid(requests)}
         if phase_log is not None:
             from repro_torch.profiler.attribution import trace_phases

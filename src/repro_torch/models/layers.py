@@ -155,8 +155,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if bf16_probs:
         raise NotImplementedError(
-            "opt_bf16_probs: bf16 score traffic is not ported "
-            "(ROADMAP Queue 1, slice 7 measurement/perf knobs)")
+            "opt_bf16_probs: bf16 score traffic is not ported yet "
+            "(ROADMAP Queue 1, item 14: the dry run's perf knobs)")
     return flash_attention(q, k, v, mask_type=mask_type, window=window,
                            prefix_len=prefix_len, q_offset=q_offset,
                            kv_len=kv_len, softmax_scale=softmax_scale,

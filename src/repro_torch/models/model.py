@@ -139,7 +139,7 @@ def check_supported(cfg) -> None:
     if cfg.family == "hybrid" and cfg.opt_gate_bf16:
         raise NotImplementedError(
             f"{cfg.name}: opt_gate_bf16 (bf16 RG-LRU gate products) is not "
-            f"ported yet (ROADMAP Queue 1, slice 7 measurement/perf knobs)")
+            f"ported yet (ROADMAP Queue 1, item 14: the dry run's perf knobs)")
 
 
 def param_defs(cfg) -> Dict[str, Any]:

@@ -18,7 +18,8 @@ with its op-class costs.
   exactly 1.0 per cell (the acceptance invariant).  Device time of a
   class the costs cannot explain lands in idle, never vanishes.
 
-A compiled cell's trace is the compiled step's: on the card Inductor's
+A compiled cell's trace is the compiled step's (a serve or loadgen
+cell's: the engine's compiled decode step): on the card Inductor's
 generated kernels are classed by their kind (``hloanalysis.op_class``:
 ``triton_poi_*`` elementwise, the reductions other) beside the port's
 kernels, which stay custom ops inside the graph; on the CPU

@@ -58,6 +58,7 @@ class ClusterScheduler:
     def __init__(self, spec: str, *, runs: int = 5, warmup: int = 1,
                  compile_warmup: int = 3, reuse: bool = True,
                  measure_fence: bool = True, device: str = "cuda",
+                 matmul_precision: str = "",
                  timeout: float = 1200.0,
                  heartbeat_timeout: float = 30.0,
                  connect_timeout: float = 120.0, capacity: int = 1):
@@ -79,6 +80,8 @@ class ClusterScheduler:
                     "--runs", str(runs), "--warmup", str(warmup),
                     "--compile-warmup", str(compile_warmup),
                     "--device", device]
+            if matmul_precision:
+                argv += ["--matmul-precision", matmul_precision]
             if capacity > 1:
                 # pipelined dispatch: the worker advertises capacity K at
                 # register time, so the coordinator keeps K cells of its

@@ -70,7 +70,11 @@ def _src_dir() -> str:
 
 
 def _subprocess_env() -> Dict[str, str]:
-    env = dict(os.environ)
+    """A worker's environment: this process's, the package on its path,
+    and the compile cache it shares with this process
+    (``harness.compile_env``)."""
+    from repro_torch.core.harness import compile_env
+    env = dict(os.environ, **compile_env())
     src = _src_dir()
     env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
                                if env.get("PYTHONPATH") else "")
@@ -246,6 +250,7 @@ class ShardScheduler:
     def __init__(self, jobs: int, *, runs: int = 5, warmup: int = 1,
                  compile_warmup: int = 3, reuse: bool = True,
                  measure_fence: bool = True, device: str = "cuda",
+                 matmul_precision: str = "",
                  timeout: float = 1200.0, steal: bool = True):
         if os.name != "posix":
             # the protocol needs select()able pipes + flock; fail loudly
@@ -259,6 +264,8 @@ class ShardScheduler:
         argv = [sys.executable, "-m", "repro_torch.runner.worker", "--serve",
                 "--runs", str(runs), "--warmup", str(warmup),
                 "--compile-warmup", str(compile_warmup), "--device", device]
+        if matmul_precision:
+            argv += ["--matmul-precision", matmul_precision]
         if not reuse:
             argv.append("--no-reuse")
         # measurement fence (see the module docstring and worker._run_cell)

@@ -21,13 +21,16 @@
 * annotates serial, in-process step cells with their API-surface coverage
   when asked (``coverage=True``): ``extra["cov_*"]`` (``core/coverage``).
 
-Runs ``train``, ``infer_prefill``, ``infer_decode`` and ``serve`` cells in
-every compiler mode (see ``scenario.py`` for the mapping): a step cell in
-a ``jit*`` mode measures ``harness.compile_step`` of its step (compiled
-once per scenario, in the process that runs the cell: nothing compiled
-crosses a process), an ``eager`` cell the step itself
-(``harness.measure_eager``); serve cells run the engine uncompiled.
-``loadgen`` and ``kernel`` cells come back as error records naming the
+Runs ``train``, ``infer_prefill``, ``infer_decode``, ``serve`` and
+``loadgen`` cells in every compiler mode (see ``scenario.py`` for the
+mapping): a step cell in a ``jit*`` mode measures ``harness.compile_step``
+of its step (compiled once per scenario, in the process that runs the
+cell: Dynamo's cache is per process, while a graph another process
+compiled loads from Inductor's disk cache, which the workers share through
+``harness.compile_env``), an ``eager`` cell the step
+itself (``harness.measure_eager``); serve and loadgen cells replay their
+trace through a ``ServeEngine`` whose decode step and admission are
+compiled.  ``kernel`` cells come back as error records naming the
 ROADMAP item.  Not ported yet, and raising ``NotImplementedError`` when
 asked for: span tracing (ROADMAP Queue 1, item 12) and the dry-run tier
 (item 14).
@@ -43,8 +46,10 @@ import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from repro_torch.core.harness import (RegressionHook, compile_step, measure,
-                                     measure_eager, prepare)
+import torch
+
+from repro_torch.core.harness import (RegressionHook, compile_budget, compile_step,
+                                     measure, measure_eager, prepare)
 from repro_torch.core.hloanalysis import HloCost, analyze_step
 from repro_torch.core.suite import Built, build_arch, get_benchmark
 from repro_torch.device import DeviceLike, device_name, resolve_device
@@ -58,7 +63,7 @@ from repro_torch.runner.traces import (cache_len_bound, capture_spec,
                                        spec_for_scenario)
 from repro_torch.runner.traces import generate as generate_trace
 
-_MEASURE = "(ROADMAP Queue 1, item 13c: loadgen; kernel cells: slice 7)"
+_MEASURE = "(ROADMAP Queue 1, item 11: the kernel autotuner's cells)"
 
 
 def _unported(**flags) -> None:
@@ -258,7 +263,7 @@ class BenchmarkRunner:
         the timed loop.
         """
         prof = self.profile if profile is None else profile
-        if scenario.task in ("loadgen", "kernel"):
+        if scenario.task == "kernel":
             self.stats.scenarios_run += 1
             self.stats.errors += 1
             return self._finalize(RunResult.from_error(
@@ -268,7 +273,7 @@ class BenchmarkRunner:
             return self._run_isolated(scenario, hook=hook, runs=runs,
                                       warmup=warmup, record=record,
                                       profile=prof, extra=extra)
-        if scenario.task == "serve":
+        if scenario.task in ("serve", "loadgen"):
             return self._run_serve(scenario, hook=hook, record=record,
                                    profile=prof, extra=extra)
         t0 = time.perf_counter()
@@ -302,6 +307,10 @@ class BenchmarkRunner:
                 scenario, m, wall_s=time.perf_counter() - t0, cache=cache)
             if cache.get("executable_reused"):
                 rr.compile_us = 0.0
+            if scenario.mode != "eager":
+                # this process's compiles so far (a worker's reach the
+                # dispatcher through its records)
+                rr.extra["compile_budget"] = compile_budget()
             if cov:
                 rr.extra.update(cov)
             if prof and scenario.mode == "eager":
@@ -383,7 +392,8 @@ class BenchmarkRunner:
 
     def _serve_engine_for(self, scenario: Scenario, built: Built,
                           max_len: int) -> Tuple[Any, bool]:
-        """The cached engine for a serve cell; returns (engine, reused)."""
+        """The cached (compiled) engine for a serve or loadgen cell;
+        returns (engine, reused)."""
         from repro_torch.launch.serve import ServeEngine
         key = (scenario.build_key(), scenario.mode, max_len,
                scenario.admission)
@@ -408,12 +418,22 @@ class BenchmarkRunner:
         per-token decode latencies; TTFT/per-token p50/p95/p99 and
         throughput land under the well-known ``extra`` keys.
 
+        ``task="loadgen"`` is serve under transformed load: the trace is
+        sharded (``scenario.split``), then its virtual arrival clock scaled
+        by the offered load (``scenario.load``); the record adds
+        ``offered_load`` and ``split``.  A measured replay that compiled
+        (``admit_new_shapes``: a load reached an admission shape no earlier
+        replay of the engine had) has its wall folded into ``compile_us``
+        and is measured again; a second replay that still compiles makes
+        the cell an error record.
+
         ``profile=True`` splits every decode step of the measured replay
         (``ServeEngine.run(phase_log=...)``) and attributes it over the
         decode step's op classes; replay wall time outside decode steps
         (admission, prefill, queue management) is the profile's idle
         share."""
         from repro_torch.launch.serve import summarize_metrics
+        from repro_torch.runner.loadgen import scale_arrivals, shard_requests
         t0 = time.perf_counter()
         self.stats.scenarios_run += 1
         key = None
@@ -424,6 +444,12 @@ class BenchmarkRunner:
                                    mode=scenario.mode)
             model_reused = self.stats.model_cache_hits > hits0
             reqs = generate_trace(spec, vocab=built.cfg.vocab)
+            if scenario.task == "loadgen":
+                reqs = scale_arrivals(shard_requests(reqs, scenario.split),
+                                      scenario.load)
+                if not reqs:
+                    raise ValueError(f"split {scenario.split!r} leaves an empty "
+                                     f"shard of {spec.requests} requests")
             # sized for the whole replay: a row never needs more than its
             # own prompt + budget (+ the vlm prefix)
             prefix = built.cfg.n_prefix if built.cfg.family == "vlm" else 0
@@ -436,16 +462,27 @@ class BenchmarkRunner:
                      "executable_reused": engine_reused}
             compile_us = 0.0
             if not engine_reused:
-                # untimed warm replay on a fresh engine (first-call costs,
+                # untimed warm replay on a fresh engine (its compiles,
                 # recorded as compile_us), so the measured replay's latency
                 # samples are steady-state
                 tc = time.perf_counter()
                 engine.run(reqs)
                 compile_us = (time.perf_counter() - tc) * 1e6
-            phase_log = [] if profile else None
-            trace: Dict[str, Any] = {}
-            out = engine.run(reqs, hook=hook, phase_log=phase_log,
-                             device_trace=trace)
+            for attempt in range(2):
+                phase_log = [] if profile else None
+                trace: Dict[str, Any] = {}
+                out = engine.run(reqs, hook=hook, phase_log=phase_log,
+                                 device_trace=trace)
+                if not out["admit_new_shapes"]:
+                    break
+                if attempt:
+                    raise RuntimeError(
+                        f"{scenario.name}: the replay compiled again when measured "
+                        f"again ({out['admit_new_shapes']} frames): no steady state")
+                # this load reached shapes no earlier replay compiled: the
+                # replay paid their compiles; the rerun is shape-complete,
+                # the replay being deterministic
+                compile_us += out["wall_s"] * 1e6
             sx = summarize_metrics(out)
             plens = sorted(len(r.prompt) for r in reqs)
             sx.update(trace=scenario.trace, slots=scenario.slots,
@@ -454,6 +491,10 @@ class BenchmarkRunner:
                       prompt_len_p95=percentile(plens, 95))
             sx["capture"] = dataclasses.asdict(capture_spec(
                 reqs, seed=spec.seed, source=f"capture:{scenario.name}"))
+            if scenario.task == "loadgen":
+                sx.update(offered_load=scenario.load, split=scenario.split)
+            sx["compiled"] = engine.compiled
+            sx["compile_budget"] = compile_budget()
             if profile:
                 sx.update(self._profile_extra(
                     ("serve-cost",) + key, phase_log, trace,
@@ -504,34 +545,50 @@ class BenchmarkRunner:
         scenarios = matrix.expand()
         jobs = self.jobs if jobs is None else jobs
         cluster = self.cluster if cluster is None else cluster
+        extras = self._matrix_extras(matrix, scenarios)
         if cluster and scenarios:
             return self._run_clustered(scenarios, hooks=hooks, runs=runs,
                                        warmup=warmup, cluster=cluster,
-                                       profile=profile)
+                                       profile=profile, extras=extras)
         if jobs and jobs > 1 and scenarios:
             # even a single cell goes through the pool: the caller opted
             # into worker fault containment and shard metadata
             return self._run_sharded(scenarios, hooks=hooks, runs=runs,
                                      warmup=warmup, jobs=jobs,
-                                     profile=profile)
+                                     profile=profile, extras=extras)
         out = []
         for sc in scenarios:
             hook = (hooks or {}).get(sc.name) or (hooks or {}).get(sc.bench)
             out.append(self.run(sc, hook=hook, runs=runs, warmup=warmup,
-                                profile=profile))
+                                profile=profile, extra=extras.get(sc.name)))
         return out
+
+    @staticmethod
+    def _matrix_extras(matrix: ScenarioMatrix,
+                       scenarios: List[Scenario]) -> Dict[str, Dict[str, Any]]:
+        """Per-cell extras from the matrix's expansion (the
+        ``slots_fallback`` marker of a ``slots="auto"`` resolution that
+        fell back), attached to each result before it is recorded, on
+        every transport."""
+        fb = matrix.slots_fallback()
+        return {sc.name: {"slots_fallback": fb[sc.name]}
+                for sc in scenarios if sc.name in fb}
 
     def _dispatch_config(self) -> Dict[str, Any]:
         """What every worker is started with: this runner's measurement
-        protocol and device."""
+        protocol and device, and this process's float32 matmul precision
+        (the worker's numerics, and a key of Inductor's cache: a worker at
+        another precision misses every graph this process compiled)."""
         return dict(runs=self.runs, warmup=self.warmup,
                     compile_warmup=self.compile_warmup, reuse=self.reuse,
-                    measure_fence=self.measure_fence, device=str(self.device))
+                    measure_fence=self.measure_fence, device=str(self.device),
+                    matmul_precision=torch.backends.cuda.matmul.fp32_precision)
 
     def _run_sharded(self, scenarios: List[Scenario], *,
                      hooks: Optional[Dict[str, RegressionHook]],
                      runs: Optional[int], warmup: Optional[int], jobs: int,
-                     profile: Optional[bool] = None) -> List[RunResult]:
+                     profile: Optional[bool] = None,
+                     extras: Optional[Dict[str, Dict[str, Any]]] = None) -> List[RunResult]:
         """Dispatch a scenario batch to the persistent shard pool; the pool
         (and its workers' warm caches) lives until ``close()``."""
         if self._pool is not None and self._pool.jobs != jobs:
@@ -543,7 +600,8 @@ class BenchmarkRunner:
         prof = self.profile if profile is None else profile
         results, run_stats = self._pool.run(scenarios, hooks=hooks, runs=runs,
                                             warmup=warmup, profile=prof,
-                                            on_result=record, steal=self.steal)
+                                            on_result=record, steal=self.steal,
+                                            extras=extras)
         self.stats.merge(run_stats)
         return results
 
@@ -551,7 +609,8 @@ class BenchmarkRunner:
                        hooks: Optional[Dict[str, RegressionHook]],
                        runs: Optional[int], warmup: Optional[int],
                        cluster: str,
-                       profile: Optional[bool] = None) -> List[RunResult]:
+                       profile: Optional[bool] = None,
+                       extras: Optional[Dict[str, Dict[str, Any]]] = None) -> List[RunResult]:
         """Dispatch a scenario batch to the cluster coordinator; the
         coordinator (and for ``local:N`` its worker subprocesses with
         their warm caches) lives until ``close()``, like the pool."""
@@ -565,7 +624,8 @@ class BenchmarkRunner:
         prof = self.profile if profile is None else profile
         results, run_stats = self._cluster.run(scenarios, hooks=hooks,
                                                runs=runs, warmup=warmup,
-                                               profile=prof, on_result=record)
+                                               profile=prof, on_result=record,
+                                               extras=extras)
         self.stats.merge(run_stats)
         return results
 
@@ -591,7 +651,9 @@ class BenchmarkRunner:
                "--runs", str(runs or self.runs),
                "--warmup", str(self.warmup if warmup is None else warmup),
                "--compile-warmup", str(self.compile_warmup),
-               "--device", str(self.device), "--json", out]
+               "--device", str(self.device),
+               "--matmul-precision", torch.backends.cuda.matmul.fp32_precision,
+               "--json", out]
         if not self.reuse:
             cmd.append("--no-reuse")
         if profile:

@@ -32,11 +32,13 @@ mapping is ``repro.core.compilers``: ``eager`` is op-by-op dispatch and
 
 Nothing runs uncompiled under a ``jit*`` name: a compile error, a
 recompile past Dynamo's limit or a timed call that recompiles is an
-error record of the cell.  Serving cells (``task="serve"``) run the
-engine uncompiled in both their modes (ROADMAP Queue 1, item 13c).
+error record of the cell.  Serving cells (``task="serve"`` and
+``"loadgen"``) compile the engine's decode step and admission in both
+their modes (``launch/serve.py``); ``jit_donated`` writes into the live
+KV cache, ``jit`` into a copy made outside the compiled region.
 
-``task="loadgen"`` and ``task="kernel"`` validate here, but the port's
-runner does not run them yet (ROADMAP Queue 1, slice 7).
+``task="kernel"`` validates here, but the port's runner does not run it
+yet (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -224,9 +226,10 @@ class ScenarioMatrix:
     ``slots`` / ``traces`` / ``admissions`` multiply out only under
     ``task="serve"`` / ``"loadgen"``; ``loads`` / ``splits`` under
     ``"loadgen"`` only.  Serve cells skip modes outside ``SERVE_MODES``,
-    kernel cells modes outside ``KERNEL_MODES``.  ``slots="auto"`` (resolved
-    from a measured load curve in the reference) waits for ``loadgen``
-    (ROADMAP Queue 1, slice 7) and raises.
+    kernel cells modes outside ``KERNEL_MODES``.  ``slots="auto"`` resolves
+    per arch at expansion from the port's measured load curve
+    (``loadgen.auto_slots_info``); cells whose resolution fell back to the
+    default width are named, with the reason, by ``slots_fallback()``.
     """
     archs: Sequence[str]
     tasks: Sequence[str] = STEP_TASKS
@@ -234,7 +237,7 @@ class ScenarioMatrix:
     seqs: Sequence[int] = (64,)
     dtypes: Sequence[str] = ("fp32",)
     modes: Sequence[str] = ("jit_donated",)
-    slots: Sequence[int] = (4,)
+    slots: Sequence[Any] = (4,)         # ints, or "auto"
     traces: Sequence[str] = ("uniform",)
     loads: Sequence[float] = (1.0,)
     splits: Sequence[str] = ("",)
@@ -243,12 +246,35 @@ class ScenarioMatrix:
     exclude: Sequence[str] = ()
     skip: Sequence[str] = ()
 
-    def expand(self) -> List[Scenario]:
-        if "auto" in self.slots:
-            raise NotImplementedError("slots='auto' needs the load-curve "
-                                      "autoscaler (runner/loadgen.py, ROADMAP "
-                                      "Queue 1, slice 7)")
+    def _fields_key(self) -> Tuple:
+        return tuple(tuple(getattr(self, f.name))
+                     for f in dataclasses.fields(self))
+
+    def _expanded(self) -> List[Scenario]:
+        key = self._fields_key()
+        cached = getattr(self, "_expand_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
         skip = set(self.skip)
+        # per-arch (slots, fallback_reason) for slots="auto"; cells whose
+        # resolution fell back carry the reason as extra["slots_fallback"]
+        # (BenchmarkRunner._matrix_extras)
+        slot_cache: Dict[str, Tuple[int, str]] = {}
+        fallbacks: Dict[str, str] = {}
+
+        def resolve_slots(k, arch):
+            if k != "auto":
+                return k
+            if arch not in slot_cache:
+                from repro_torch.runner.loadgen import auto_slots_info
+                slot_cache[arch] = auto_slots_info(arch)
+            return slot_cache[arch][0]
+
+        def mark_auto(s: Scenario, k, arch) -> Scenario:
+            if k == "auto" and slot_cache.get(arch, (0, ""))[1]:
+                fallbacks[s.name] = slot_cache[arch][1]
+            return s
+
         out: List[Scenario] = []
         for arch, task, batch, seq, dtype, mode in itertools.product(
                 self.archs, self.tasks, self.batches, self.seqs,
@@ -256,17 +282,19 @@ class ScenarioMatrix:
             if task == "serve":
                 if mode not in SERVE_MODES:
                     continue
-                cells = [Scenario(arch=arch, task=task, batch=batch, seq=seq,
-                                  dtype=dtype, mode=mode, slots=k, trace=t,
-                                  admission=adm)
+                cells = [mark_auto(Scenario(arch=arch, task=task, batch=batch, seq=seq,
+                                            dtype=dtype, mode=mode,
+                                            slots=resolve_slots(k, arch), trace=t,
+                                            admission=adm), k, arch)
                          for k, t, adm in itertools.product(
                              self.slots, self.traces, self.admissions)]
             elif task == "loadgen":
                 if mode not in SERVE_MODES:
                     continue
-                cells = [Scenario(arch=arch, task=task, batch=batch, seq=seq,
-                                  dtype=dtype, mode=mode, slots=k, trace=t,
-                                  load=ld, split=sp, admission=adm)
+                cells = [mark_auto(Scenario(arch=arch, task=task, batch=batch, seq=seq,
+                                            dtype=dtype, mode=mode,
+                                            slots=resolve_slots(k, arch), trace=t,
+                                            load=ld, split=sp, admission=adm), k, arch)
                          for k, t, ld, sp, adm in itertools.product(
                              self.slots, self.traces, self.loads, self.splits,
                              self.admissions)]
@@ -276,10 +304,25 @@ class ScenarioMatrix:
                 cells = [Scenario(arch=arch, task=task, batch=batch, seq=seq,
                                   dtype=dtype, mode=mode)]
             out.extend(s for s in cells if not {s.name, s.bench, s.arch} & skip)
-        return select_scenarios(out, self.filter, self.exclude)
+        out = select_scenarios(out, self.filter, self.exclude)
+        names = {s.name for s in out}
+        self._fallback_cache = {n: r for n, r in fallbacks.items() if n in names}
+        self._expand_cache = (key, out)
+        return out
+
+    def slots_fallback(self) -> Dict[str, str]:
+        """Scenario name -> fallback reason for every expanded cell whose
+        ``slots="auto"`` resolution fell back to the default width (see
+        ``loadgen.auto_slots_info``); empty when every resolution used a
+        measured curve, or no cell asked for ``"auto"``."""
+        self._expanded()
+        return dict(self._fallback_cache)
+
+    def expand(self) -> List[Scenario]:
+        return list(self._expanded())   # callers may mutate their copy
 
     def __iter__(self):
-        return iter(self.expand())
+        return iter(self._expanded())
 
     def __len__(self) -> int:
-        return len(self.expand())
+        return len(self._expanded())

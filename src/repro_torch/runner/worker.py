@@ -60,10 +60,11 @@ can be isolated, sharded and clustered too.
 **Each worker compiles its own cells.**  A job carries a scenario, never
 a compiled step: the worker's runner compiles a ``jit*`` cell in this
 process (``harness.compile_step``), and its Dynamo cache lives and dies
-with it.  On a card every worker points Inductor's and Triton's caches at
-the checkout's ``build/inductor`` (``harness.INDUCTOR_CACHE_DIR``); whether
-a graph one process compiled loads from there in another is not shown
-(a worker's compile has taken as long as the first one).
+with it.  A graph another process compiled loads from Inductor's disk
+cache: the dispatcher gives each worker the cache folders
+(``harness.compile_env``) and, in its arguments, its float32 matmul
+precision, which the cache key holds (``--matmul-precision``).
+A cell's record carries its process's ``compile_budget``.
 """
 from __future__ import annotations
 
@@ -115,7 +116,10 @@ def _load_kernels() -> None:
 
 
 def _build_runner(args):
+    import torch
     from repro_torch.runner.runner import BenchmarkRunner
+    if args.matmul_precision:
+        torch.backends.cuda.matmul.fp32_precision = args.matmul_precision
     runner = BenchmarkRunner(runs=args.runs, warmup=args.warmup,
                              compile_warmup=args.compile_warmup,
                              reuse=args.reuse, device=args.device)
@@ -310,6 +314,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="the device every cell runs on (the dispatcher's); "
                          "a card asked for and absent fails the worker")
+    ap.add_argument("--matmul-precision", default="",
+                    help="float32 matmul precision "
+                         "(torch.backends.cuda.matmul.fp32_precision)")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--compile-warmup", type=int, default=3,

@@ -41,12 +41,17 @@ def test_runner_cells_are_ok_with_reference_record_fields(runner, task):
 
 
 def test_unported_tasks_and_modes_come_back_as_error_records(runner):
-    """Every compiler mode runs now (``tests/test_torch_compilers.py``);
-    the loadgen task is still refused, as an error record naming its
-    ROADMAP item."""
+    """Every compiler mode runs (``tests/test_torch_compilers.py``) and so
+    does a loadgen cell (``tests/test_torch_loadgen.py``); the kernel task
+    is still refused, as an error record naming its ROADMAP item."""
     rr = runner.run(Scenario(arch="gemma-2b", task="loadgen", batch=1, seq=8))
-    assert rr.status == "error" and "ROADMAP" in rr.error and "loadgen" in rr.error
+    assert rr.status == "ok", rr.error
     assert rr.name == "gemma-2b/loadgen/b1/s8/fp32/jit_donated/x4/uniform/L1"
+    assert rr.extra["offered_load"] == 1.0 and rr.extra["split"] == ""
+    assert rr.extra["compiled"] and rr.extra["tokens_digest"]
+    rr = runner.run(Scenario(arch="flash_attention@128x8@bq64", task="kernel", mode="jit"))
+    assert rr.status == "error" and "ROADMAP" in rr.error and "item 11" in rr.error
+    assert rr.name == "flash_attention@128x8@bq64/kernel/b2/s64/fp32/jit"
     assert rr.extra["prov_framework"] == "torch"
 
 
@@ -123,7 +128,7 @@ def test_scenarios_match_reference_names_and_keys(kw):
     assert port.to_dict() == ref.to_dict()
 
 
-def test_scenario_validation_and_matrix_match_reference():
+def test_scenario_validation_and_matrix_match_reference(tmp_path, monkeypatch):
     for bad in (dict(task="nope"), dict(task="serve", mode="eager"),
                 dict(task="infer_prefill", slots=2)):
         with pytest.raises(ValueError):
@@ -135,8 +140,13 @@ def test_scenario_validation_and_matrix_match_reference():
                 exclude=("bursty",))
     assert [s.name for s in ScenarioMatrix(**axes)] == \
         [s.name for s in ref_scenario.ScenarioMatrix(**axes)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ScenarioMatrix(archs=("gemma-2b",), tasks=("serve",), slots=("auto",)).expand()
+    # slots="auto" with no curve: the default width, the fallback named
+    monkeypatch.setenv("REPRO_TORCH_LOADGEN_CURVE", str(tmp_path / "none.json"))
+    monkeypatch.setenv("REPRO_LOADGEN_CURVE", str(tmp_path / "none.json"))
+    auto = dict(archs=("gemma-2b",), tasks=("serve",), slots=("auto",))
+    port, ref = ScenarioMatrix(**auto), ref_scenario.ScenarioMatrix(**auto)
+    assert [s.name for s in port] == [s.name for s in ref]
+    assert port.slots_fallback() == ref.slots_fallback() != {}
 
 
 def test_run_matrix_runs_serially_and_records(tmp_path):
