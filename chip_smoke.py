@@ -31,11 +31,23 @@ against its plain version (``attention_bwd_ref``) over gemma-2b's full
 width, the reduced config, every mask, softcap and K=2, with a bitwise
 repeat (bf16 through its tensor-core variant, fp32 through its CUDA-core
 one: counted by variant; at gemma-2b's shape both variants are timed);
-two reduced gemma-2b train steps on the card against the CPU; then
-gemma-2b trained at full width (B=1, S=2048) through the suite's train
-step, whose every attention layer runs the forward kernel twice (once
-more under ``remat="full"``) and the backward kernel once, all through
-their tensor-core variants.
+at whisper-large-v3's cross attention (2048 queries over 1500 frames)
+and encoder; the SSD's and RG-LRU's backward kernels against autograd
+through their plain versions (``ssd_bwd_kernels``: mamba2-2.7b's train
+shape, ragged, from a state, a strong decay, fp32; ``rglru_bwd_kernels``:
+recurrentgemma-9b's, ragged, with ``dh_last``, lanes at a = 1, strided),
+bitwise reruns; two reduced train steps on the card against the CPU for
+every family (``train_reference_check``: gemma-2b, gemma3-12b,
+nemotron-4-15b, mamba2-2.7b, recurrentgemma-9b, paligemma-3b,
+whisper-large-v3, each backward op launched once per layer per step);
+then gemma-2b trained at full width (B=1, S=2048) through the suite's
+train step, whose every attention layer runs the forward kernel twice
+(once more under ``remat="full"``) and the backward kernel once, all
+through their tensor-core variants, and the other families trained at
+full width, eager (``train_full``: mamba2-2.7b at its full 64 layers,
+recurrentgemma-9b at 8 of 38, paligemma-3b at 6, whisper-large-v3 at 2 +
+2), each step's launches counted, its device time by class and its peak
+memory under ``TRAIN_MEMORY_LIMIT``.
 The profiler (``repro_torch.profiler``) then profiles six of those cells
 on the same builds (``profile_cell_full``: gemma-2b ``infer_prefill``,
 ``infer_decode``, ``train`` and ``serve``, mamba2-2.7b and
@@ -53,13 +65,15 @@ statuses and serve tokens must agree, a profiled serve cell must carry
 the same ``prof_*`` keys serially and from a worker, with attention time
 on the card, and no worker may outlive ``close()``.
 Perf-CI (``core.ci``, ``core.regression``, ``core.coverage``): the paper's
-nightly run (``nightly``: gemma-2b's reduced ``infer_decode`` cell and the
-``train`` cells of mamba2-2.7b, recurrentgemma-9b, paligemma-3b and
-whisper-large-v3 across two shard workers; every cell comes back, those
-four train cells, which the port refuses, are its only ``status`` issues,
-and an injected slowdown is filed) and the
+nightly run (``nightly``: gemma-2b's reduced ``infer_decode`` cell and
+the ``train`` cells of mamba2-2.7b, recurrentgemma-9b, paligemma-3b and
+whisper-large-v3, the decode cell compiled in its worker and the train
+cells uncompiled, across two shard workers without the measurement
+fence; every cell comes back ok and records its baseline, no ``status``
+issue, and an injected slowdown is filed) and the
 API-surface coverage of reduced steps (``coverage``: the same torch API
-and ATen op sets on the card as on the CPU, kernels one op each); on the
+and ATen op sets on the card as on the CPU, kernels and backward kernels
+one op each); on the
 full-width builds, each of the six profiled cells
 is measured ``NOISE_RUNS`` times, the two ``ci_full`` cells
 ``NOISE_RUNS_CI`` times (``noise``: the spread of its median,
@@ -74,16 +88,20 @@ The compiler modes (``compilers``, slice 8): the Inductor cache under
 cold, and every later process loads a graph an earlier one compiled
 (``harness.compile_env``; one ``compile_budget`` line per process that
 compiles: its seconds inside compiles and its cache hits and misses).
-Right after the kernels, five processes of their own (``PARTS``,
-``chip_smoke.py --part``) run beside the main one, which runs nightly,
-coverage, ``loadgen``, ``serve_compiled_reduced`` and the reference
-checks meanwhile: the paper's
-Figs. 3-4 matrix (gemma-2b, mamba2-2.7b, recurrentgemma-9b,
-internlm2-20b and whisper-large-v3 reduced, ``train`` B=2 S=48, all five
-modes through the runner; the train cells the port refuses are error
-records by name) with its ``ratio_table``, and mamba2-2.7b's and
+Seven processes of their own (``PARTS``, ``chip_smoke.py --part``) run
+beside the main one, ``dispatch`` and ``runner`` from the end of the
+builds, the others from the end of the kernel phases, while the main one
+runs coverage, ``loadgen``, the reference checks and mamba2's and
+recurrentgemma's reduced train steps compiled under ``aot_eager``
+(``_aot_eager_train``: Dynamo and AOT autograd through the backward ops'
+fakes; launches equal to eager's, each backward op once a layer): the
+paper's Figs. 3-4 matrix (reduced, ``train`` B=2 S=48 through the
+runner: gemma-2b in all five modes, and internlm2-20b's five in a part
+of their own) with its ``ratio_table``, and mamba2-2.7b's and
 recurrentgemma-9b's reduced prefills under ``eager`` and ``jit``;
-``runner_cell``; ``dispatch``; gemma-2b's
+``nightly``: the nightly run, then the matrix's mamba2-2.7b,
+recurrentgemma-9b and whisper-large-v3 cells eager, then
+``serve_compiled_reduced``; ``runner_cell``; ``dispatch``; gemma-2b's
 full-width ``infer_prefill`` and ``infer_decode`` compiled against eager,
 then the serve CLI's engine compiled at full width (``serve_warm_full``:
 the cold compile of the graphs the timed serve phases load); and
@@ -164,7 +182,18 @@ FA_BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its XLA at
 # relative to each gradient's largest |value|: fp32 the same math in other
 # sums; bf16 inputs and gradients rounded to bf16
 BWD_TOL = {"fp32": 1e-4, "bf16": 3e-2}
-TRAIN_MEMORY_LIMIT = 72e9                      # bytes: gemma-2b training, B=1 S=2048
+TRAIN_MEMORY_LIMIT = 72e9                      # bytes: one model training, B=1 S=2048
+SSD_BWD_SOURCE = "src/repro_torch/csrc/ssd_bwd.cu"
+SSD_BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its XLA chunked scan "
+                    "(src/repro/models/ssm.py:56) by autodiff")
+RGLRU_BWD_SOURCE = "src/repro_torch/csrc/rglru_bwd.cu"
+RGLRU_BWD_REPLACES = ("none: no TPU kernel; the reference differentiates its XLA scan "
+                      "(src/repro/models/rglru.py:56) by autodiff")
+# the scans' backward kernels, each gradient's max abs error relative to its
+# largest |value|: fp32 the same math in other sums, bf16 x, B, C, dy and
+# dx, dB, dC rounded to bf16 (as SSD_TOL); a strong decay as the forward's
+SCAN_BWD_TOL = {"fp32": 1e-4, "bf16": 5e-2}
+SCAN_BWD_STRONG_DECAY_TOL = {"fp32": 1e-3, "bf16": 5e-2}
 
 
 # a part run in a process of its own (``--part``, ``_start_part``) counts
@@ -224,8 +253,10 @@ def phase_build():
     from repro_torch.kernels.rglru import kernel as rk
     from repro_torch.kernels.ssd import kernel as sk
     fa_bwd = SimpleNamespace(library=fa.bwd_library, build_info=fa.bwd_build_info)
+    ssd_bwd = SimpleNamespace(library=sk.bwd_library, build_info=sk.bwd_build_info)
+    rglru_bwd = SimpleNamespace(library=rk.bwd_library, build_info=rk.bwd_build_info)
     t0 = time.perf_counter()
-    mods = (fa, fa_bwd, sk, rk)
+    mods = (fa, fa_bwd, sk, rk, ssd_bwd, rglru_bwd)
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.library) for m in mods]:
             f.result()
@@ -248,7 +279,11 @@ def phase_build():
                                    (3, "fa_bwd_tc_dq"))},
                 **{f"dynamic_smem_bytes_simt_pass{i}_d256": fa.bwd_shared_memory_bytes(i, 256)
                    for i in (1, 2, 3)}}),
-            ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0))):
+            ("rglru", rk, RGLRU_SOURCE, dict(dynamic_smem_bytes=0)),
+            ("ssd_bwd", ssd_bwd, SSD_BWD_SOURCE, dict(zip(
+                ("dynamic_smem_bytes_chunk_state_p64_n128", "dynamic_smem_bytes_chunk_p64_n128"),
+                sk.bwd_shared_memory_bytes(64, 128)))),
+            ("rglru_bwd", rglru_bwd, RGLRU_BWD_SOURCE, dict(dynamic_smem_bytes=0))):
         ptxas = mod.build_info.get("ptxas", "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
         spills = re.findall(r"(\d+) bytes spill stores", ptxas)
@@ -262,7 +297,8 @@ def phase_build():
                        if n and any(v in f for v in ("fa_tc_kernel", "fa_split_kernel",
                                                      "fa_decode_combine"))}
             check(not spilled, f"flash attention variants spill registers: {spilled}")
-        if name in ("ssd", "rglru", "flash_attention_bwd"):   # none of these may spill
+        if name in ("ssd", "rglru", "flash_attention_bwd", "ssd_bwd",
+                    "rglru_bwd"):   # none of these may spill
             spilled = {f: n for f, n in _spills_by_function(ptxas).items() if n}
             check(not spilled, f"{name} kernels spill registers: {spilled}")
 
@@ -483,7 +519,7 @@ FA_BWD_PASS_PRODUCTS = (1, 4, 0, 3)
 
 
 def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", window=0,
-                prefix_len=0, softcap=0.0):
+                prefix_len=0, softcap=0.0, Sk=None):
     """The backward kernel against ``attention_bwd_ref`` on the card, on
     the forward kernel's own output, through the variant ``plan_bwd``
     picks: the worst error relative to each gradient's largest |value|,
@@ -493,7 +529,8 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
     alone as a yardstick (causal only); in bf16 also both variants in this
     run (``launch_bwd``, uncounted), each output held against the plain
     version and each timed, and the bytes of the ``tc`` dk/dv partials as
-    the plan sizes them (computed, not measured)."""
+    the plan sizes them (computed, not measured).  ``Sk``: keys of their own
+    length (cross attention), S by default."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (BWD_TILE, BWD_VARIANTS,
@@ -506,13 +543,14 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
     dev = torch.device("cuda")
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     g = torch.Generator().manual_seed(0)
+    Sk = S if Sk is None else Sk
     q, k, v, do = [torch.randn(sh, generator=g).to(dev, tdt)
-                   for sh in ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D))]
+                   for sh in ((B, S, H, D), (B, Sk, K, D), (B, Sk, K, D), (B, S, H, D))]
     kw = dict(mask_type=mask_type, window=window, prefix_len=prefix_len, softcap=softcap)
     o = flash_attention(q, k, v, **kw)
     call = lambda: flash_attention_bwd_cuda(   # noqa: E731
-        q, k, v, o, do, q_offset=0, kv_len=S, scale=D ** -0.5, **kw)
-    variant = plan_bwd(B, S, S, H, K, D, tdt)
+        q, k, v, o, do, q_offset=0, kv_len=Sk, scale=D ** -0.5, **kw)
+    variant = plan_bwd(B, S, Sk, H, K, D, tdt)
     by_variant = flash_attention_bwd_cuda.launches_by_variant
     before = (flash_attention_bwd_cuda.launches, by_variant[variant])
     got = call()
@@ -526,7 +564,7 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
                                / w.float().abs().max()).item()
                            for n, a, w in zip(("dq", "dk", "dv"), out, want)}
     rel = rel_err(got)
-    res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, H=H, K=K, D=D), mask=mask_type,
+    res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, Sk=Sk, H=H, K=K, D=D), mask=mask_type,
                window=window, prefix_len=prefix_len, softcap=softcap, variant=variant, rel_err=rel,
                max_rel_err=max(rel.values()),
                max_abs_err=max((a.float() - w.float()).abs().max().item()
@@ -539,7 +577,7 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
     if timed:
         # 5 products of 2 D a visible pair and head; q, o, do, dq and k, v,
         # dk, dv once (``kernel.cost_bwd``, the profiler's count too)
-        flops, nbytes = cost_bwd(B, S, S, H, K, D, tdt, mask_type=mask_type, window=window,
+        flops, nbytes = cost_bwd(B, S, Sk, H, K, D, tdt, mask_type=mask_type, window=window,
                                  prefix_len=prefix_len)
         res["bound_ms"], res["bound_by"] = _roofline(flops, nbytes, _peak(dtype))
         res["ms"] = time_ms(call, iters=10, warmup=2)
@@ -551,7 +589,7 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
             n: p * flops / 5 / _peak(dtype) * 1e3
             for n, p in zip(FA_BWD_KERNELS[variant], FA_BWD_PASS_PRODUCTS) if p}
         if dtype == "bf16":   # both variants on the same inputs, in turns
-            args = dict(q_offset=0, kv_len=S, scale=D ** -0.5, **kw)
+            args = dict(q_offset=0, kv_len=Sk, scale=D ** -0.5, **kw)
             runs = {n: (lambda n=n: launch_bwd(q, k, v, o, do, n, **args)) for n in BWD_VARIANTS}
             res["variants_max_rel_err"] = {n: max(rel_err(runs[n]()).values())
                                            for n in BWD_VARIANTS}
@@ -564,9 +602,9 @@ def fa_bwd_case(name, dtype, B, S, H, K, D, timed=False, mask_type="causal", win
                     res["variants_ms"][n].append(time_ms(runs[n], iters=10, warmup=2))
             res["variants_device_ms"] = {n: device_ms(runs[n], "fa_bwd_", iters=5)
                                          for n in BWD_VARIANTS}
-            chunk = bwd_chunk_tiles(B, S, S, H, K, mask_type, window, prefix_len, 0, S)
-            blocks = B * K * bwd_dkv_blocks(S, S, H // K, 0, S, mask_type, window, prefix_len,
-                                            chunk)
+            chunk = bwd_chunk_tiles(B, S, Sk, H, K, mask_type, window, prefix_len, 0, Sk)
+            blocks = B * K * bwd_dkv_blocks(S, Sk, H // K, 0, Sk, mask_type, window,
+                                            prefix_len, chunk)
             # dk and dv fp32 tiles of 64 keys a dk/dv block, written once and read once
             res["partials_from_plan"] = dict(chunk_tiles=chunk, dkv_blocks=blocks,
                                              bytes=2 * 4 * blocks * BWD_TILE * D)
@@ -601,6 +639,12 @@ def phase_fa_backward_kernels():
                                  prefix_len=100))
         cases.append(fa_bwd_case("softcap", dtype, 1, 512, 8, 1, 256, softcap=30.0))
         cases.append(fa_bwd_case("k2", dtype, 2, 256, 8, 2, 64))
+    # whisper-large-v3's train shapes (H = K = 20, D = 64, full mask): the
+    # decoder's cross attention over the 1,500 frames, a ragged key length,
+    # and the encoder's self attention
+    cases.append(fa_bwd_case("whisper_cross", "bf16", 1, 2048, 20, 20, 64, mask_type="full",
+                             Sk=1500))
+    cases.append(fa_bwd_case("whisper_encoder", "bf16", 1, 1500, 20, 20, 64, mask_type="full"))
     emit("fa_backward_summary", cases=len(cases),
          worst_rel_err={d: max(c["max_rel_err"] for c in cases if c["dtype"] == d)
                         for d in ("bf16", "fp32")}, tol=BWD_TOL)
@@ -813,6 +857,224 @@ def phase_rglru_plan_sweep():
     emit("rglru_plan_sweep_summary", shapes=len(shapes), plan_picked_faster=picked_faster)
 
 
+def _grad_errs(got, want, names):
+    """Each gradient's max abs error, absolute and relative to its largest
+    |value| in ``want``."""
+    out = {}
+    for n, g, w in zip(names, got, want):
+        d = (g.double() - w.double()).abs().max().item()
+        out[n] = (d, d / max(w.double().abs().max().item(), 1e-300))
+    return out
+
+
+def _scan_bwd_timing(res, call, plain, names, work, dtype, passes=()):
+    """The timed part of a scan backward case: ms by events, device ms by
+    ``torch.profiler`` (each of ``passes`` too), the bound from
+    ``work = (flops, bytes)`` at the inputs' type's peak, the plain
+    version's ms (autograd's backward through it, the forward's graph
+    kept), and no library call."""
+    flops, nbytes = work
+    res["bound_ms"], res["bound_by"] = _roofline(flops, nbytes, _peak(dtype))
+    res["ms"] = time_ms(call, iters=10, warmup=2)
+    dev_ms = _device_ms_by(call, names + tuple(passes))
+    res["device_ms"] = dev_ms[names[0]]
+    if passes:
+        res["passes_device_ms"] = {n: dev_ms[n] for n in passes}
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    if isinstance(res["device_ms"], float):
+        res["bound_share_device"] = res["bound_ms"] / res["device_ms"]
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    res["gbytes_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+    res["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+    res["library_ms"] = None   # no single PyTorch call computes the scan's gradient
+
+
+# the SSD backward's kernels (csrc/ssd_bwd.cu), as the profiler names them
+SSD_BWD_PASSES = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk_kernel",
+                  "ssd_bwd_reduce", "ssd_bwd_da")
+
+
+def ssd_bwd_case(name, dtype, B, S, H, P, N, init=False, timed=False, decay=None):
+    """The SSD backward kernel, through the op's autograd formula (one
+    launch), against autograd through the plain version (``ssd_ref``) on
+    the same inputs, with a nonzero ``dstate`` always.  The plain version
+    is differentiated in float64 on the card: its fp32 autograd strays by
+    itself ~4e-3 in dA at a strong decay (``tests/test_torch_ssd_bwd.py``),
+    and its own fp32 error is reported beside (``plain_fp32_rel_err``).
+    Then a second launch that must be bitwise equal.  ``decay``: one A for
+    every head."""
+    import torch
+    from repro_torch.kernels.ssd.kernel import cost_bwd, plan_bwd, ssd_bwd_cuda
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    dev = torch.device("cuda")
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(B, S, H, P, generator=g).to(dev, tdt)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3).to(dev)
+    if decay is not None:
+        A = torch.full_like(A, decay)
+    Bm = (torch.randn(B, S, N, generator=g) * 0.3).to(dev, tdt)
+    Cm = (torch.randn(B, S, N, generator=g) * 0.3).to(dev, tdt)
+    h0 = torch.randn(B, H, P, N, generator=g).to(dev) if init else None
+    dy = torch.randn(B, S, H, P, generator=g).to(dev, tdt)
+    ds = torch.randn(B, H, P, N, generator=g).to(dev)
+    ins = [x, dt, A, Bm, Cm, h0]
+    names = ("dx", "ddt", "dA", "dBm", "dCm", "dinit")[:6 if init else 5]
+    variant = plan_bwd(B, S, H, P, N, tdt)
+    leaves = [None if t is None else t.clone().requires_grad_() for t in ins]
+    before = dict(ssd_bwd_cuda.launches_by_variant)
+    y, state = ssd(*leaves)
+    torch.autograd.backward((y, state), (dy, ds))
+    torch.cuda.synchronize()
+    check(ssd_bwd_cuda.launches_by_variant[variant] == before[variant] + 1,
+          f"{name}: the SSD backward's {variant} variant did not launch once")
+    got = [t.grad for t in leaves if t is not None]
+
+    def plain_grads(dtype_):
+        lv = [None if t is None else t.to(dtype_).requires_grad_() for t in ins]
+        outs = ssd_ref(*lv)
+        return torch.autograd.grad(outs, [t for t in lv if t is not None],
+                                   (dy.to(dtype_), ds.to(dtype_)))
+    exact = plain_grads(torch.float64)
+    errs = _grad_errs(got, exact, names)
+    plain32 = _grad_errs(plain_grads(torch.float32), exact, names)
+    again = ssd_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, ds)
+    first = ssd_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, ds)
+    torch.cuda.synchronize()
+    tol = (SCAN_BWD_TOL if decay is None else SCAN_BWD_STRONG_DECAY_TOL)[dtype]
+    res = dict(case=name, dtype=dtype, shape=dict(B=B, S=S, H=H, P=P, N=N), init_state=init,
+               dstate=True, decay=decay, variant=variant,
+               rel_err={n: e[1] for n, e in errs.items()},
+               max_rel_err=max(e[1] for e in errs.values()),
+               max_abs_err=max(e[0] for e in errs.values()), tol=tol,
+               plain_fp32_rel_err={n: e[1] for n, e in plain32.items()},
+               dtypes_ok=all(gg.dtype == t.dtype and gg.shape == t.shape
+                             for gg, t in zip(got, [t for t in ins if t is not None])),
+               bitwise_equal_rerun=all(torch.equal(a, b) for a, b in zip(again, first)),
+               finite=all(bool(torch.isfinite(t).all().item()) for t in got))
+    check(res["finite"] and res["dtypes_ok"] and res["bitwise_equal_rerun"]
+          and res["max_rel_err"] <= tol,
+          f"SSD backward disagrees with its plain version or is not deterministic: {res}")
+    if timed:
+        xp = [None if t is None else t.detach().requires_grad_() for t in ins]
+        outs = ssd_ref(*xp)
+        wrt = [t for t in xp if t is not None]
+        _scan_bwd_timing(
+            res, lambda: ssd_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, ds),
+            lambda: torch.autograd.grad(outs, wrt, (dy, ds), retain_graph=True),
+            ("ssd_bwd_",), cost_bwd(B, S, H, P, N, tdt, init, True), dtype, SSD_BWD_PASSES)
+        del outs
+    emit("ssd_bwd_kernels", **res)
+    return res
+
+
+def phase_ssd_bwd_kernels():
+    """The SSD backward kernel against its plain version: mamba2-2.7b's
+    train shape (bf16, timed), a ragged S, an initial state, a strong
+    decay (fp32) and the reduced config (fp32)."""
+    cases = [ssd_bwd_case("mamba2_train", "bf16", 1, 2048, 80, 64, 128, timed=True),
+             ssd_bwd_case("ragged_s2000", "bf16", 1, 2000, 80, 64, 128),
+             ssd_bwd_case("init_state", "bf16", 2, 200, 80, 64, 128, init=True),
+             ssd_bwd_case("strong_decay", "fp32", 1, 2048, 80, 64, 128, init=True,
+                          decay=-50.0),
+             ssd_bwd_case("reduced_fp32", "fp32", 2, 37, 16, 16, 16, init=True),
+             ssd_bwd_case("mamba2_train_fp32", "fp32", 1, 2048, 80, 64, 128, timed=True)]
+    emit("ssd_bwd_summary", cases=len(cases),
+         worst_rel_err={d: max(c["max_rel_err"] for c in cases if c["dtype"] == d)
+                        for d in ("bf16", "fp32")}, tol=SCAN_BWD_TOL)
+    return cases
+
+
+def rglru_bwd_case(name, B, S, D, init=False, last=False, ones=False, strided=False,
+                   timed=False):
+    """The RG-LRU backward kernel, through the op's autograd formula (one
+    launch), against autograd through the plain version
+    (``rglru_blocked``) on the same fp32 inputs; ``last``: a gradient of
+    the last step given too; ``ones``: an eighth of the lanes at a = 1
+    exactly, where the gate's slope is 0.  Then a second launch that must
+    be bitwise equal."""
+    import torch
+    from repro_torch.kernels.rglru.kernel import cost_bwd, plan_bwd, rglru_bwd_cuda
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rglru.ref import rglru_blocked
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    if strided:   # x and a as slices of wider rows
+        buf = torch.randn(B, S, 2 * D + 7, generator=g).to(dev)
+        x, a = buf[..., :D], torch.sigmoid(buf * 2)[..., D:2 * D]
+    else:
+        x = torch.randn(B, S, D, generator=g).to(dev)
+        a = torch.sigmoid(torch.randn(B, S, D, generator=g) * 2).to(dev)
+    if ones:
+        a = a.clone()
+        a[..., : D // 8] = 1.0
+    h0 = torch.randn(B, D, generator=g).to(dev) if init else None
+    dh = torch.randn(B, S, D, generator=g).to(dev)
+    dl = torch.randn(B, D, generator=g).to(dev) if last else None
+    ins = [x, a, h0]
+    names = ("dx", "da", "dinit")[:3 if init else 2]
+    variant = plan_bwd(B, S, D)
+    leaves = [None if t is None else t.clone().requires_grad_() for t in ins]
+    before = dict(rglru_bwd_cuda.launches_by_variant)
+    h, h_last = rglru(*leaves)
+    torch.autograd.backward((h, h_last) if last else (h,), (dh, dl) if last else (dh,))
+    torch.cuda.synchronize()
+    check(rglru_bwd_cuda.launches_by_variant[variant] == before[variant] + 1,
+          f"{name}: the RG-LRU backward's {variant} variant did not launch once")
+    got = [t.grad for t in leaves if t is not None]
+    lv = [None if t is None else t.clone().requires_grad_() for t in ins]
+    hp = rglru_blocked(*lv)
+    outs, grads = ((hp, hp[:, -1]), (dh, dl)) if last else ((hp,), (dh,))
+    want = torch.autograd.grad(outs, [t for t in lv if t is not None], grads,
+                               retain_graph=True)
+    errs = _grad_errs(got, want, names)
+    hk = h.detach().contiguous()
+    xs, as_ = x.contiguous(), a.contiguous()
+    runs = [rglru_bwd_cuda(x, a, hk, h0, dh, dl) for _ in range(2)]
+    torch.cuda.synchronize()
+    res = dict(case=name, dtype="fp32", shape=dict(B=B, S=S, D=D), init_state=init,
+               dh_last=last, unit_lanes=ones, strided=strided, variant=variant,
+               rel_err={n: e[1] for n, e in errs.items()},
+               max_rel_err=max(e[1] for e in errs.values()),
+               max_abs_err=max(e[0] for e in errs.values()), tol=SCAN_BWD_TOL["fp32"],
+               bitwise_equal_rerun=all(torch.equal(p, q) for p, q in zip(*runs)),
+               finite=all(bool(torch.isfinite(t).all().item()) for t in got))
+    check(res["finite"] and res["bitwise_equal_rerun"]
+          and res["max_rel_err"] <= SCAN_BWD_TOL["fp32"],
+          f"RG-LRU backward disagrees with its plain version or is not deterministic: {res}")
+    if timed:
+        wrt = [t for t in lv if t is not None]
+        _scan_bwd_timing(
+            res, lambda: rglru_bwd_cuda(xs, as_, hk, h0, dh, dl),
+            lambda: torch.autograd.grad(outs, wrt, grads, retain_graph=True),
+            ("rglru_bwd_",), cost_bwd(B, S, D, init, last), "fp32")
+        # not the same function: one elementwise call that moves the same
+        # 24 bytes an element (four (B, S, D) fp32 tensors read, two written),
+        # the rate a streaming kernel reaches on this card
+        o1, o2 = torch.empty_like(dh), torch.empty_like(dh)
+        res["stream_floor_device_ms"] = device_ms(
+            lambda: (torch.addcmul(xs, as_, hk, out=o1), torch.mul(dh, 2.0, out=o2)))
+    del outs
+    emit("rglru_bwd_kernels", **res)
+    return res
+
+
+def phase_rglru_bwd_kernels():
+    """The RG-LRU backward kernel against its plain version:
+    recurrentgemma-9b's train shape (D = lru_width 4096, timed), a ragged
+    S, an initial state with ``dh_last``, lanes at a = 1, strided inputs."""
+    cases = [rglru_bwd_case("recurrentgemma_train", 1, 2048, 4096, timed=True),
+             rglru_bwd_case("ragged_s2000", 1, 2000, 4096),
+             rglru_bwd_case("init_dh_last", 2, 130, 4096, init=True, last=True),
+             rglru_bwd_case("unit_lanes", 1, 2048, 4096, init=True, last=True, ones=True),
+             rglru_bwd_case("strided_ragged", 3, 37, 300, init=True, last=True, strided=True)]
+    emit("rglru_bwd_summary", cases=len(cases),
+         worst_rel_err=max(c["max_rel_err"] for c in cases), tol=SCAN_BWD_TOL["fp32"])
+    return cases
+
+
 # the walls of the runner's phases in the last runs before their step cells
 # compiled (PERF.md §6, the H100's runs before; runner_cell was not timed)
 RUNNER_WALLS_BEFORE = {"runner": None, "dispatch": [80.0, 69.7], "nightly": [43.8, 42.0, 48.2],
@@ -828,21 +1090,26 @@ RUNNER_WALLS_BEFORE = {"runner": None, "dispatch": [80.0, 69.7], "nightly": [43.
 # TorchInductor compile of 12-25 s on the H100 (PERF.md §5), are cut for
 # the script's time limit (ROADMAP item 13c)
 RUNNER_STEP_CELLS = {"mamba2-2.7b": ("infer_prefill",), "recurrentgemma-9b": ("infer_prefill",)}
+# the archs whose compiled serve engine (B=8, S=32) runs in runner_cell:
+# gemma-2b's, mamba2-2.7b's and recurrentgemma-9b's run compiled in
+# dispatch, loadgen and serve_compiled_*, so their runner_cell cells (three
+# cold compiles) are cut for the script's time limit (PR 25)
+RUNNER_SERVE_ARCHS = ("gemma3-12b", "nemotron-4-15b", "internlm2-20b", "paligemma-3b",
+                      "whisper-large-v3")
 RUNNER_SHAPE = dict(batch=2, seq=48)
 
 
 def phase_runner(smi, runner):
     """The runner's cells on the card through ``runner``, which it closes
-    after: every arch's serve cell (its engine compiled) and the step cells
-    of ``RUNNER_STEP_CELLS``, each ok."""
+    after: the serve cell of every arch whose compiled engine no other phase
+    runs (``RUNNER_SERVE_ARCHS``) and the step cells of
+    ``RUNNER_STEP_CELLS``, each ok."""
     from repro_torch.runner import Scenario
-    archs = ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b", "gemma3-12b",
-             "nemotron-4-15b", "internlm2-20b", "paligemma-3b", "whisper-large-v3")
     # the prefill cells last: by then the dispatch and compilers parts have
     # compiled their graphs, which then load from Inductor's cache
-    for arch, task, kw in ([(a, "serve", dict(batch=8, seq=32)) for a in archs]
-                           + [(a, t, RUNNER_SHAPE) for a in archs
-                              for t in RUNNER_STEP_CELLS.get(a, ())]):
+    for arch, task, kw in ([(a, "serve", dict(batch=8, seq=32)) for a in RUNNER_SERVE_ARCHS]
+                           + [(a, t, RUNNER_SHAPE) for a, tasks in RUNNER_STEP_CELLS.items()
+                              for t in tasks]):
         sc = Scenario(arch=arch, task=task, **kw)
         rr = runner.run(sc)
         compiled = rr.extra.get("compiled", rr.mode != "eager")
@@ -1095,35 +1362,38 @@ def phase_loadgen(smi):
     return budgets
 
 
-# the train cells the port refuses on the card today, each with the words
-# of its own refusal: the SSD and RG-LRU ops have no backward (ROADMAP item
-# 16), the vlm and encdec families no loss (item 15)
-REFUSED_TRAIN = {"mamba2-2.7b/train": "ssd: the CUDA kernel has no backward yet",
-                 "recurrentgemma-9b/train": "rglru: the CUDA kernel has no backward yet",
-                 "paligemma-3b/train": "item 15: the vlm and encdec loss",
-                 "whisper-large-v3/train": "item 15: the vlm and encdec loss"}
 # the nightly run's cells: gemma-2b's decode cell, which a worker compiles,
-# and the train cell of each family the port refuses to train on the card
-# (ssm, hybrid, vlm, encdec), each with its refusal.  The other cells of
-# the eight archs x {train, infer_decode}, a cold compile of 15-150 s each
-# in a worker (162-190 s with them on the H100, 48 s uncompiled), are
-# excluded for the script's time limit
+# and the train cell of each family that trains on the card from PR 25 on
+# (ssm, hybrid, vlm, encdec), uncompiled.  Compiled (``jit_donated``, the
+# reference nightly's mode), each is a cold compile of 218-360 s in its
+# worker beside the other parts on the H100, and with them (and the new
+# families' compiled matrix cells on their graphs) the script took
+# 1,277.9 s, past its limit (PERF.md §6, PR 25).  The other cells of the
+# eight archs x {train, infer_decode} are excluded for the time limit too
 NIGHTLY_ARCHS = ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b", "paligemma-3b",
                  "whisper-large-v3")
 NIGHTLY_TASKS = ("train", "infer_decode")
-NIGHTLY_EXCLUDE = (r"^gemma-2b/train/", r"^(?!gemma-2b/).*/infer_decode/")
+NIGHTLY_MODES = ("jit_donated", "eager")
+NIGHTLY_EXCLUDE = (r"^gemma-2b/train/", r"^(?!gemma-2b/).*/infer_decode/",
+                   r"/infer_decode/.*/eager$", r"/train/.*/jit_donated$")
 NIGHTLY_HOOKED = "gemma-2b/infer_decode"
-NIGHTLY_CELLS = 1 + len(REFUSED_TRAIN)
+NIGHTLY_CELLS = 5
 NIGHTLY_SLOWDOWN_S = 0.25
 
 
 def phase_nightly(smi):
     """The paper's nightly CI run (``core.ci.run_nightly``) on the card:
     ``NIGHTLY_ARCHS`` x ``NIGHTLY_TASKS`` less ``NIGHTLY_EXCLUDE`` at the
-    runner cells' shapes (B=2, S=48), across two shard workers (``jobs=2``),
-    each worker compiling its cells.  Night 0 records the baselines; every
-    cell must come back, and the only ``status`` issues must be the four
-    train cells of ``REFUSED_TRAIN``, each with its refusal.  Night 1
+    runner cells' shapes (B=2, S=48), across two shard workers
+    (``jobs=2``) without the measurement fence: fenced, the decode cell's
+    cold compile (a cell's warm pass runs under the fence) would hold the
+    dispatch part's and loadgen's workers, which share the fence.  So the
+    night's medians are taken beside the other parts' work (reported; the
+    injected slowdown is 20x a clean median).  gemma-2b's decode cell is
+    compiled in its worker, the train cells run uncompiled
+    (``NIGHTLY_MODES``).  Night 0 records the baselines;
+    every cell must come back ok, with no ``status`` issue, and record its
+    baseline: five.  Night 1
     injects a 0.25 s slowdown into ``NIGHTLY_HOOKED`` (through the pool's
     hook parameters) and must file its ``median_us`` issue; the other
     issues of that clean night are reported (host noise at these reduced
@@ -1134,14 +1404,15 @@ def phase_nightly(smi):
     from repro_torch.core.regression import MetricStore
     from repro_torch.runner import BenchmarkRunner
     t0 = time.perf_counter()
-    runner = BenchmarkRunner(device="cuda", runs=3)
+    runner = BenchmarkRunner(device="cuda", runs=3, measure_fence=False)
     pids = set()
     try:
         with tempfile.TemporaryDirectory() as d:
             store = MetricStore(os.path.join(d, "metrics.json"))
             night = dict(archs=list(NIGHTLY_ARCHS), tasks=NIGHTLY_TASKS,
                          exclude=NIGHTLY_EXCLUDE, batches=(RUNNER_SHAPE["batch"],),
-                         seqs=(RUNNER_SHAPE["seq"],), runs=3, runner=runner, jobs=2)
+                         seqs=(RUNNER_SHAPE["seq"],), modes=NIGHTLY_MODES, runs=3,
+                         runner=runner, jobs=2)
             night0 = run_nightly(store, update_baseline=True, **night)
             pids.update(runner.worker_pids())
             hooks = {NIGHTLY_HOOKED: RegressionHook(slowdown_s=NIGHTLY_SLOWDOWN_S)}
@@ -1169,24 +1440,19 @@ def phase_nightly(smi):
     for night, (rep, (status, _)) in enumerate(zip((night0, night1), nights)):
         check(rep.ran == NIGHTLY_CELLS,
               f"nightly {night}: {rep.ran} of {NIGHTLY_CELLS} cells came back")
-        check(set(status) == set(REFUSED_TRAIN),
-              f"nightly {night}: status issues {sorted(status)}, expected "
-              f"{sorted(REFUSED_TRAIN)}")
-        for bench, words in REFUSED_TRAIN.items():
-            check(words in (status[bench] or ""),
-                  f"nightly {night}: {bench} failed otherwise: {status[bench]}")
+        check(not status, f"nightly {night}: status issues {status}")
     check(not nights[0][1], f"nightly 0 filed issues on its baseline night: {nights[0][1]}")
-    check(len(baselines) == NIGHTLY_CELLS - len(REFUSED_TRAIN),
-          f"nightly: {len(baselines)} baselines")
+    check(len(baselines) == NIGHTLY_CELLS, f"nightly: {len(baselines)} baselines")
     check(bool(hit), f"nightly 1: the injected {NIGHTLY_HOOKED} slowdown was not filed")
     check(not alive, f"nightly: workers alive after close: {alive}")
 
 
-# the suite steps of the coverage comparison: those of gemma-2b, mamba2-2.7b,
-# recurrentgemma-9b and whisper-large-v3 that run on the card (the other
-# train steps are refused there: REFUSED_TRAIN)
+# the suite steps of the coverage comparison: gemma-2b's, mamba2-2.7b's and
+# recurrentgemma-9b's train and prefill steps (every kernel and backward
+# kernel), whisper-large-v3's prefill
 COVERAGE_SUITE = (("gemma-2b", "train"), ("gemma-2b", "infer_prefill"),
-                  ("mamba2-2.7b", "infer_prefill"), ("recurrentgemma-9b", "infer_prefill"),
+                  ("mamba2-2.7b", "train"), ("mamba2-2.7b", "infer_prefill"),
+                  ("recurrentgemma-9b", "train"), ("recurrentgemma-9b", "infer_prefill"),
                   ("whisper-large-v3", "infer_prefill"))
 
 
@@ -1224,8 +1490,15 @@ def phase_coverage(smi):
          kernels=kernels, card_cpu_differences=diffs)
     check(not diffs, f"coverage: the card's surfaces differ from the CPU's: {diffs}")
     check(kernels == [SCOPE_PREFIX + k for k in ("flash_attention", "flash_attention_bwd",
-                                                 "rglru", "ssd")],
+                                                 "rglru", "rglru_bwd", "ssd", "ssd_bwd")],
           f"coverage: kernels {kernels}")
+    # each backward kernel one op of its train step's torch API and ATen
+    # sets on both devices
+    for arch, op in (("mamba2-2.7b", "ssd_bwd"), ("recurrentgemma-9b", "rglru_bwd")):
+        for dev, rep in reports.items():
+            for key in ("primitives", "stablehlo_ops"):
+                check(SCOPE_PREFIX + op in rep["per_benchmark"][f"{arch}/train"][key],
+                      f"coverage: {arch}/train's {key} on {dev} lack {op}")
     check(card["coverage_x_primitives"] > 1.1,
           f"coverage: {card['coverage_x_primitives']} x the gemma-2b sub-suite")
 
@@ -1519,13 +1792,42 @@ def _serve_compiled_reduced(arch, built, reqs, max_len, smi):
           f"{c['new_shapes']} compiled in the replay")
 
 
-def phase_train_reference_check(arch="gemma-2b", steps=2, batch=2, seq=24):
+def _train_launches(cfg):
+    """Each kernel's launches in one train step of ``cfg``: per attention
+    call (the encdec family's encoder, decoder self and cross attention),
+    per Mamba-2 layer and per RG-LRU layer one backward launch, and two
+    forward launches under ``remat`` "full" or "dots" (the forward again
+    in the backward; the kernels' custom ops are recomputed under both),
+    one under "none"."""
+    from repro_torch.models.model import _hybrid_split
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        per = {"ssd": n}
+    elif cfg.family == "hybrid":
+        groups, tail = _hybrid_split(cfg)
+        per = {"rglru": groups * cfg.pattern_rec + tail, "flash_attention": groups}
+    elif cfg.family == "encdec":
+        per = {"flash_attention": cfg.n_enc_layers + 2 * n}
+    else:
+        per = {"flash_attention": n}
+    forward = 1 if cfg.remat == "none" else 2
+    out = dict.fromkeys(_counters(), 0)
+    for kernel, calls in per.items():
+        out[kernel], out[f"{kernel}_bwd"] = forward * calls, calls
+    return out
+
+
+def phase_train_reference_check(arch="gemma-2b", steps=2, batch=2, seq=24, moments_tol=1e-4):
     """Training on the card against the CPU: the same reduced ``arch``
     weights (fp32 compute), the suite's train step (uncompiled) twice on
-    each (the same numpy tokens), then loss and grad_norm within 1e-4
-    relative, mu and nu within 1e-4 of each leaf's largest |value|, params
-    within 1e-4 absolute (the default schedule's lr is 3e-6 and 6e-6
-    here); every layer's flash backward launched on the card."""
+    each (the same numpy tokens, patch embeddings or frames), then loss
+    and grad_norm within 1e-4 relative, mu and nu within ``moments_tol``
+    of each leaf's largest |value| (1e-4; recurrentgemma 5e-4, the bound
+    its CPU step holds against the reference: the gate and decay
+    gradients sum in other orders), params within 1e-4 absolute (the
+    default schedule's lr is 3e-6 and 6e-6 here); on the card every
+    kernel launched as ``_train_launches`` counts (each backward op once
+    per layer per step), every backward through its fp32 variant."""
     import numpy as np
     import torch
     from repro_torch.bridge import opt_state_to_numpy, params_to_numpy
@@ -1536,37 +1838,43 @@ def phase_train_reference_check(arch="gemma-2b", steps=2, batch=2, seq=24):
     cpu = build_model(cfg, device="cpu", seed=0)
     runs = {}
     for name, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
-        step, (state, tokens), _ = get_benchmark(arch, "train").make(
+        step, (state, inputs), _ = get_benchmark(arch, "train").make(
             batch=batch, seq=seq, built=Built(cfg, model))
         _reset_counts()
         metrics = []
         for _ in range(steps):
-            state, m = step(state, tokens)
+            state, m = step(state, inputs)
             metrics.append({k: float(v) for k, v in m.items()})
         runs[name] = (metrics, _read_counts(), params_to_numpy(state[0]),
                       opt_state_to_numpy(state[1]))
-        bwd_variants = _read_bwd_variants()   # the card's run is the last
+        # the card's run is the last
+        bwd_variants, scan_bwd_variants = _read_bwd_variants(), _read_scan_bwd_variants()
     (mc, _, pc, oc), (mg, counts, pg, og) = runs["cpu"], runs["cuda"]
     rel = lambda a, b: abs(a - b) / abs(b)   # noqa: E731
     leaf_err = lambda got, want: max(   # noqa: E731
         float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
         for (_, g), (_, w) in zip(_leaves(got), _leaves(want)))
-    res = dict(arch=arch, steps=steps, batch=batch, seq=seq, tol=1e-4,
+    want = {k: steps * v for k, v in _train_launches(cfg).items()}
+    res = dict(arch=arch, family=cfg.family, steps=steps, batch=batch, seq=seq, tol=1e-4,
+               moments_tol=moments_tol,
                loss_cpu=[m["loss"] for m in mc], loss_cuda=[m["loss"] for m in mg],
                loss_rel_err=max(rel(g["loss"], c["loss"]) for g, c in zip(mg, mc)),
                grad_norm_rel_err=max(rel(g["grad_norm"], c["grad_norm"]) for g, c in zip(mg, mc)),
                params_max_abs_err=max(float(np.abs(g - w).max())
                                       for (_, g), (_, w) in zip(_leaves(pg), _leaves(pc))),
                mu_rel_err=leaf_err(og["mu"], oc["mu"]), nu_rel_err=leaf_err(og["nu"], oc["nu"]),
-               kernel_launches_cuda=counts, bwd_launches_by_variant_cuda=bwd_variants)
+               kernel_launches_cuda=counts, expected_launches_cuda=want,
+               bwd_launches_by_variant_cuda=bwd_variants,
+               scan_bwd_launches_by_variant_cuda=scan_bwd_variants)
     emit("train_reference_check", **res)
-    # fp32 compute: the backward's CUDA-core variant
-    check(counts["flash_attention_bwd"] == steps * cfg.n_layers
-          and bwd_variants == {"tc": 0, "simt": steps * cfg.n_layers},
-          f"train reference check {arch}: backward launches {counts}, by variant "
-          f"{bwd_variants}")
-    check(max(res["loss_rel_err"], res["grad_norm_rel_err"], res["params_max_abs_err"],
-              res["mu_rel_err"], res["nu_rel_err"]) <= 1e-4,
+    # fp32 compute: the flash backward's CUDA-core variant
+    check(counts == want and bwd_variants == {"tc": 0, "simt": want["flash_attention_bwd"]}
+          and scan_bwd_variants == {"ssd_bwd": {"simt": want["ssd_bwd"]},
+                                    "rglru_bwd": {"seq": want["rglru_bwd"]}},
+          f"train reference check {arch}: launches {counts} (expected {want}), flash "
+          f"backward by variant {bwd_variants}, scan backward {scan_bwd_variants}")
+    check(max(res["loss_rel_err"], res["grad_norm_rel_err"], res["params_max_abs_err"]) <= 1e-4
+          and max(res["mu_rel_err"], res["nu_rel_err"]) <= moments_tol,
           f"training {arch} on the card differs from the CPU: {res}")
 
 
@@ -1580,7 +1888,8 @@ FORWARD_CLASSES = (("flash_fwd", ("fa_tc_kernel", "fa_kernel<", "fa_split", "fa_
 TRAIN_CLASSES = (("flash_bwd_lse_delta", ("fa_bwd_lse", "fa_bwd_tc_lse")),
                  ("flash_bwd_dk_dv", ("fa_bwd_dkv", "fa_bwd_tc_dkv")),   # the pass and its combine
                  ("flash_bwd_dq", ("fa_bwd_dq", "fa_bwd_tc_dq")),
-                 FORWARD_CLASSES[0], FORWARD_CLASSES[3],
+                 ("ssd_bwd", ("ssd_bwd_",)), ("rglru_bwd", ("rglru_bwd_",)),
+                 FORWARD_CLASSES[0], FORWARD_CLASSES[1], FORWARD_CLASSES[2], FORWARD_CLASSES[3],
                  ("adamw_foreach", ("multi_tensor_apply", "foreach")),
                  FORWARD_CLASSES[4])
 
@@ -1600,10 +1909,11 @@ def _device_ms_by_class(kernels, subclasses, per=1):
     return by_class, by_sub
 
 
-def _profile_train_step(call):
+def _profile_train_step(call, arch="gemma-2b"):
     """Device time of one train step by kernel class (``torch.profiler``):
-    flash forward and backward (by pass), cuBLAS matmuls, the AdamW
-    ``foreach`` kernels, casts and copies, the rest; and the top kernels."""
+    flash forward and backward (by pass), the SSD and RG-LRU forward and
+    backward, cuBLAS matmuls, the AdamW ``foreach`` kernels, casts and
+    copies, the rest; and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1617,7 +1927,7 @@ def _profile_train_step(call):
     by_class, by_sub = _device_ms_by_class(kernels, TRAIN_CLASSES)
     dev_ms = sum(by_class.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    emit("profile_train_step_full", wall_ms_profiled=wall_ms,
+    emit("profile_train_step_full", arch=arch, wall_ms_profiled=wall_ms,
          device_ms=dev_ms if dev_ms else "not measured",
          device_busy_share=dev_ms / wall_ms if dev_ms else "not measured",
          device_ms_by_class=by_class, device_ms_by_subclass=by_sub,
@@ -1678,7 +1988,8 @@ def phase_train_full(profiles, perf, arch="gemma-2b", batch=1, seq=2048):
     torch.cuda.synchronize()
     counts, variants, bwd_variants = _read_counts(), _read_variants(), _read_bwd_variants()
     n = cfg.n_layers
-    want = {"flash_attention": 2 * n, "flash_attention_bwd": n, "ssd": 0, "rglru": 0}
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n, "ssd": 0, "rglru": 0,
+            "ssd_bwd": 0, "rglru_bwd": 0}
     want_variants = {"tc": 2 * n, "split": 0, "simt": 0}
     want_bwd_variants = {"tc": n, "simt": 0}
     args = (state, args[1])
@@ -1752,24 +2063,102 @@ def phase_train_full(profiles, perf, arch="gemma-2b", batch=1, seq=2048):
     return counts, bwd_variants
 
 
+def phase_train_full_family(arch, cfg, smi, batch=1, seq=2048, runs=2):
+    """``arch`` trained at its full published width (``cfg``: its depth cut
+    or not) through the suite's train step, eager (uncompiled; the state
+    updated in place), random weights from seed 0, B=1 S=2048 (the vlm
+    family's 256 patch positions ahead of the tokens, the encdec family's
+    1,500 frames encoded under the loss).  The main path is one train
+    step, with every launch count set to 0 just before it and read just
+    after: ``_train_launches(cfg)`` (each backward op once per layer), the
+    bf16 flash calls through the tensor-core variants.  Then
+    ``harness.measure`` (median of ``runs`` after a warmup), a profiled
+    step's device time by class (``profile_train_step_full``) and the peak
+    device memory, under ``TRAIN_MEMORY_LIMIT``."""
+    import torch
+    from repro_torch.core import harness
+    from repro_torch.core.suite import get_benchmark
+    from repro_torch.launch import serve
+    left = _free_card()
+    check(left < 1e9, f"{arch} train: {left} bytes still allocated before the phase")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built = serve.built_for_cfg(cfg)
+    step, args, mutable = get_benchmark(arch, "train").make(batch=batch, seq=seq, built=built)
+    del built          # the state holds its own copy of the weights
+    fn = harness.prepare(step, (0,), mutable=mutable)
+    model = args[0][0]
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    probe = next(model.parameters()).detach().flatten()[:64].clone()
+    _reset_counts()                      # main path: one train step
+    state, metrics = fn(*args)
+    torch.cuda.synchronize()
+    counts, variants = _read_counts(), _read_variants()
+    bwd_variants, scan_bwd = _read_bwd_variants(), _read_scan_bwd_variants()
+    ssd_variants, rglru_variants = _read_ssd_variants(), _read_rglru_variants()
+    want = _train_launches(cfg)
+    want_variants = {"tc": want["flash_attention"], "split": 0, "simt": 0}
+    want_bwd = {"tc": want["flash_attention_bwd"], "simt": 0}
+    want_scan_bwd = {"ssd_bwd": {"simt": want["ssd_bwd"]}, "rglru_bwd": {"seq": want["rglru_bwd"]}}
+    want_ssd = {"tc": want["ssd"], "simt": 0}
+    losses = [float(metrics["loss"])]
+    args = (state, args[1])
+    final = []
+    meas = harness.measure(f"{arch}/train/b{batch}/s{seq}/full/eager", step, args, (0,),
+                           runs=runs, warmup=1, jitted=fn, final_args=final)
+    args = final[0]
+
+    def one_step():
+        nonlocal args
+        out = fn(*args)
+        losses.append(float(out[1]["loss"]))
+        args = (out[0], args[1])
+
+    _profile_train_step(one_step, arch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    changed = not torch.equal(probe, next(model.parameters()).detach().flatten()[:64])
+    emit("train_full", arch=arch, family=cfg.family, n_layers=cfg.n_layers,
+         n_enc_layers=cfg.n_enc_layers or None, batch=batch, seq=seq, mode="eager",
+         compiled=False, card=smi, median_us=meas.median_us, p10_us=meas.p10_us,
+         p90_us=meas.p90_us, tokens_per_s=batch * seq / (meas.median_us * 1e-6),
+         kernel_launches_per_step=counts, expected_launches_per_step=want,
+         flash_launches_by_variant=variants, bwd_launches_by_variant=bwd_variants,
+         scan_bwd_launches_by_variant=scan_bwd, ssd_launches_by_variant=ssd_variants,
+         rglru_launches_by_variant=rglru_variants, losses=losses,
+         params_changed=changed, max_memory_allocated=peak, limit=TRAIN_MEMORY_LIMIT,
+         param_bytes=param_bytes, state_bytes=4 * param_bytes,
+         wall_s=time.perf_counter() - t0)
+    check(counts == want, f"{arch} train: launches {counts} in one step, expected {want}")
+    check(variants == want_variants and bwd_variants == want_bwd and scan_bwd == want_scan_bwd
+          and ssd_variants == want_ssd and sum(rglru_variants.values()) == want["rglru"],
+          f"{arch} train: launches by variant: flash {variants}, backward {bwd_variants}, "
+          f"scans' backward {scan_bwd}, SSD {ssd_variants}, RG-LRU {rglru_variants}")
+    check(all(math.isfinite(x) for x in losses) and changed,
+          f"{arch} train: losses {losses}, params changed {changed}")
+    check(peak < TRAIN_MEMORY_LIMIT, f"{arch} train: peak device memory {peak} bytes "
+          f"(limit {TRAIN_MEMORY_LIMIT:.0f})")
+    del step, args, fn, model, state, metrics
+    _free_card()
+    return counts, scan_bwd
+
+
 def _counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
                                                             flash_attention_cuda)
-    from repro_torch.kernels.rglru.kernel import rglru_cuda
-    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda, rglru_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_bwd_cuda, ssd_cuda
     return {"flash_attention": flash_attention_cuda,
             "flash_attention_bwd": flash_attention_bwd_cuda, "ssd": ssd_cuda,
-            "rglru": rglru_cuda}
+            "rglru": rglru_cuda, "ssd_bwd": ssd_bwd_cuda, "rglru_bwd": rglru_bwd_cuda}
 
 
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    for kernel in ("flash_attention", "flash_attention_bwd", "ssd", "rglru"):
-        by_variant = _counters()[kernel].launches_by_variant
-        for name in by_variant:
-            by_variant[name] = 0
+        for name in fn.launches_by_variant:
+            fn.launches_by_variant[name] = 0
 
 
 def _read_counts():
@@ -1794,6 +2183,11 @@ def _read_ssd_variants():
 def _read_rglru_variants():
     """RG-LRU launches by variant (seq, chunked)."""
     return dict(_counters()["rglru"].launches_by_variant)
+
+
+def _read_scan_bwd_variants():
+    """The SSD and RG-LRU backward launches by variant."""
+    return {k: dict(_counters()[k].launches_by_variant) for k in ("ssd_bwd", "rglru_bwd")}
 
 
 def phase_profile(arch, model, steps=5):
@@ -2348,14 +2742,23 @@ def phase_full_width(arch, per_forward, cfg=None, memory_limit=MEMORY_LIMIT, pro
 # The compiler modes (paper §3.2, Figs. 3-4): eager against torch.compile
 # ---------------------------------------------------------------------------
 
-# the matrix of the reference's benchmarks/fig34_compilers.py (ARCHS_FULL,
+# the matrix of the reference's benchmarks/fig34_compilers.py (ARCHS_FULL:
+# gemma-2b, mamba2-2.7b, recurrentgemma-9b, internlm2-20b, whisper-large-v3;
 # train, B=2, S=48, every mode), less mixtral-8x7b, which waits for the moe
-# family (ROADMAP item 6)
-FIG34_ARCHS = ("gemma-2b", "mamba2-2.7b", "recurrentgemma-9b", "internlm2-20b",
-               "whisper-large-v3")
-# its train cells the port refuses on the card, with the words of the refusal
-FIG34_REFUSED = {a: REFUSED_TRAIN[f"{a}/train"]
-                 for a in ("mamba2-2.7b", "recurrentgemma-9b", "whisper-large-v3")}
+# family (ROADMAP item 6), in three parts: gemma-2b's and internlm2-20b's
+# cells in every mode, each arch in a part of its own (``compilers``,
+# ``compilers_internlm2``), and the cells of the families that train on the
+# card from PR 25 on eager, in the ``nightly`` part (``FIG34_FAMILIES``).
+# Their compiled cells are graphs no other phase compiles, a cold compile
+# of 218-360 s each beside the other parts on the H100: with mamba2's and
+# recurrentgemma's ``jit`` and ``jit_donated`` cells (and the nightly's
+# train cells compiled) the script took 1,277.9 s, past its limit (PERF.md
+# §6, PR 25).  Their train steps run compiled under ``aot_eager`` instead
+# (``FIG34_AOT_EAGER``, ``_aot_eager_train``)
+FIG34_DENSE = ("gemma-2b", "internlm2-20b")
+FIG34_FAMILIES = {"mamba2-2.7b": ("eager",), "recurrentgemma-9b": ("eager",),
+                  "whisper-large-v3": ("eager",)}
+FIG34_AOT_EAGER = ("mamba2-2.7b", "recurrentgemma-9b")
 # a compiled step's logits or loss against the eager step's, on the card
 COMPILED_TOL = {"bf16": 5e-2, "fp32": 1e-4}
 
@@ -2517,20 +2920,69 @@ def _compiled_pair(name, step, args, mutable, mode, device, dtype, smi, want_lau
     return launches[mode]
 
 
+def _matrix_launches_check(results, launches):
+    """Each compiled matrix cell launches what its eager cell launches a
+    step call, but ``jit_noremat``'s, whose build recomputes no forward:
+    one forward launch a layer, as many as the backward's."""
+    for bench, modes in results.items():
+        eager = launches[modes["eager"].name]
+        for mode, rr in modes.items():
+            want = ({k: eager.get(f"{k}_bwd", v) for k, v in eager.items()}
+                    if mode == "jit_noremat" else eager)
+            check(launches[rr.name] == want,
+                  f"compilers: {rr.name} launches {launches[rr.name]} a call, expected "
+                  f"{want} (eager, remat full: {eager})")
+
+
+def _matrix(runner, modes_by_arch, smi):
+    """The Figs. 3-4 cells of each arch of ``modes_by_arch`` x ``train``
+    (B=2, S=48) in its modes, mode by mode in ``MODES``'s order: each
+    cell's line, and their ``ratio_table`` (``base="jit"``).  Every cell
+    must be ok, and launch as its eager cell does.  Returns the results
+    (bench -> mode -> record) and each cell's launches a step call."""
+    from repro_torch.core.compilers import ratio_table
+    from repro_torch.runner import Scenario
+    from repro_torch.runner.scenario import MODES
+    results, launches, bad = {}, {}, []
+    cells = [Scenario(arch=arch, task="train", batch=2, seq=48, mode=mode)
+             for mode in MODES for arch, modes in modes_by_arch.items() if mode in modes]
+    for sc in cells:
+        rr, per_call = _compiler_cell(runner, sc, 3, smi)
+        launches[sc.name] = per_call
+        if rr.status == "ok":
+            results.setdefault(rr.bench, {})[rr.mode] = rr
+        else:
+            bad.append((sc.name, rr.error))
+    rows = ratio_table(results, base="jit")
+    eager_speedups = [r["time_ratio"] for r in rows if r["mode"] == "eager"]
+    emit("compilers_ratios", base="jit", modes_by_arch=modes_by_arch, rows=rows,
+         card=smi, jit_speedup_vs_eager_geomean=(
+             math.exp(sum(math.log(x) for x in eager_speedups) / len(eager_speedups))
+             if eager_speedups else None))
+    check(not bad, f"compilers: matrix cells failed: {bad}")
+    got = {b: sorted(m) for b, m in results.items()}
+    check(got == {f"{a}/train": sorted(m) for a, m in modes_by_arch.items()},
+          f"compilers: matrix results {got}")
+    _matrix_launches_check(results, launches)
+    return results, launches
+
+
 def phase_compilers(smi):
     """The compiler modes on the card (paper §3.2, Figs. 3-4), through the
     runner and the harness, in parts, each in a process of its own
-    (``PARTS``): the reduced cells (this function) and the full-width cells
+    (``PARTS``): the reduced cells (this function and
+    ``phase_compilers_families``, in the ``nightly`` part) and the
+    full-width cells
     (``phase_compilers_full``: the inference pairs, and the train pair):
 
-    * the Figs. 3-4 matrix (``FIG34_ARCHS`` x ``train``, B=2, S=48, every
-      mode), each cell's line with its median, ``compile_us``, host peak,
-      device delta, Dynamo's graphs and breaks and its launches per step
-      call; the only errors the refusals of ``FIG34_REFUSED``, and a
-      compiled cell's launches per call equal to its eager cell's (but
+    * the Figs. 3-4 matrix's gemma-2b cells (``train``, B=2, S=48, every
+      mode; internlm2-20b's in ``phase_compilers_internlm2``, a part of
+      its own), each cell's line with its median,
+      ``compile_us``, host peak, device delta, Dynamo's graphs and breaks
+      and its launches per step call; every cell ok, and a compiled
+      cell's launches per call equal to its eager cell's (but
       ``jit_noremat``'s, whose build recomputes no forward: one forward
-      launch a layer);
-      ``ratio_table`` over it (``base="jit"``);
+      launch a layer); ``ratio_table`` over it (``base="jit"``);
     * mamba2-2.7b's and recurrentgemma-9b's reduced ``infer_prefill`` cells
       under ``eager`` and ``jit``: the SSD and RG-LRU ops inside compiled
       graphs, as many launches a call as eager;
@@ -2541,40 +2993,13 @@ def phase_compilers(smi):
 
     No timed call may recompile (``harness.measure`` raises).  The Inductor
     cache was emptied at the start of the script, so each graph's first
-    ``compile_us`` is cold.  Returns the phase's wall."""
-    from repro_torch.core.compilers import ratio_table
-    from repro_torch.runner import BenchmarkRunner, ScenarioMatrix
+    ``compile_us`` is cold.  Returns the phase's wall and its matrix
+    cells' modes by bench."""
+    from repro_torch.runner import BenchmarkRunner
     from repro_torch.runner.scenario import MODES, Scenario
     t0 = time.perf_counter()
     runner = BenchmarkRunner(device="cuda")
-    results, launches, bad = {}, {}, []
-    for sc in ScenarioMatrix(archs=FIG34_ARCHS, tasks=("train",), batches=(2,), seqs=(48,),
-                             modes=MODES).expand():
-        rr, per_call = _compiler_cell(runner, sc, 3, smi)
-        launches[sc.name] = per_call
-        if rr.status == "ok":
-            results.setdefault(rr.bench, {})[rr.mode] = rr
-        elif not (sc.arch in FIG34_REFUSED and FIG34_REFUSED[sc.arch] in (rr.error or "")):
-            bad.append((sc.name, rr.error))
-    rows = ratio_table(results, base="jit")
-    eager_speedups = [r["time_ratio"] for r in rows if r["mode"] == "eager"]
-    emit("compilers_ratios", base="jit", rows=rows, card=smi,
-         jit_speedup_vs_eager_geomean=(math.exp(sum(math.log(s) for s in eager_speedups)
-                                                / len(eager_speedups))
-                                       if eager_speedups else None))
-    check(not bad, f"compilers: matrix cells failed: {bad}")
-    check(set(results) == {"gemma-2b/train", "internlm2-20b/train"}
-          and all(set(m) == set(MODES) for m in results.values()),
-          f"compilers: matrix results {({b: sorted(m) for b, m in results.items()})}")
-    for bench, modes in results.items():
-        eager = launches[modes["eager"].name]
-        for mode, rr in modes.items():
-            # remat="none" (jit_noremat's build) recomputes no forward
-            want = (dict(eager, flash_attention=eager["flash_attention_bwd"])
-                    if mode == "jit_noremat" else eager)
-            check(launches[rr.name] == want,
-                  f"compilers: {rr.name} launches {launches[rr.name]} a call, expected "
-                  f"{want} (eager, remat full: {eager})")
+    results, _ = _matrix(runner, {"gemma-2b": MODES}, smi)
     for arch, kernel in (("mamba2-2.7b", "ssd"), ("recurrentgemma-9b", "rglru")):
         per = {}
         for mode in ("eager", "jit"):
@@ -2586,7 +3011,91 @@ def phase_compilers(smi):
               f"compilers: {arch} prefill launches a call: jit {per['jit']}, "
               f"eager {per['eager']}")
     runner.close()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, {b: sorted(m) for b, m in results.items()}
+
+
+def phase_compilers_internlm2(smi):
+    """The Figs. 3-4 matrix's internlm2-20b cells (``train``, B=2, S=48,
+    every mode), as ``phase_compilers``'s gemma-2b cells.  Returns the
+    phase's wall and its cells' modes by bench."""
+    from repro_torch.runner import BenchmarkRunner
+    from repro_torch.runner.scenario import MODES
+    t0 = time.perf_counter()
+    runner = BenchmarkRunner(device="cuda")
+    results, _ = _matrix(runner, {"internlm2-20b": MODES}, smi)
+    runner.close()
+    return time.perf_counter() - t0, {b: sorted(m) for b, m in results.items()}
+
+
+def _aot_eager_train(arch, smi):
+    """``arch``'s reduced train step (B=2, S=48, its matrix cell's shape)
+    under ``torch.compile(backend="aot_eager")`` on the card: Dynamo and AOT
+    autograd trace it, the SSD's and RG-LRU's ops and their backward ops
+    staying opaque through their fake implementations, and the traced
+    graphs run without Inductor's codegen.  Against the eager step on a
+    copy of the same weights: the first step's loss and grad_norm within
+    ``COMPILED_TOL`` (relative), a later call's launches equal to an eager
+    call's and to ``_train_launches`` (each backward op once a layer), and
+    no recompile."""
+    import torch
+    from repro_torch.core.harness import dynamo_counts
+    from repro_torch.core.suite import build_arch, get_benchmark
+    built = build_arch(arch, {}, "cuda")
+    bench = get_benchmark(arch, "train")
+    step, (state_e, batch), _ = bench.make(batch=2, seq=48, built=built)
+    _, (state_c, _), _ = bench.make(batch=2, seq=48, built=built)
+    compiled = torch.compile(step, backend="aot_eager", dynamic=False)
+    c0 = dynamo_counts()
+    t0 = time.perf_counter()
+    state_c, mc = compiled(state_c, batch)          # the compile, then a step
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    c1 = dynamo_counts()
+    state_e, me = step(state_e, batch)
+    launches = {}
+    for way, fn in (("eager", step), ("aot_eager", compiled)):
+        _reset_counts()
+        state = state_e if way == "eager" else state_c
+        state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        launches[way] = _read_counts()
+    recompiled = _dynamo_delta(c1, dynamo_counts())["graphs"]
+    dtype = "bf16" if built.cfg.compute_dtype == torch.bfloat16 else "fp32"
+    rel = {k: abs(float(mc[k]) - float(me[k])) / abs(float(me[k]))
+           for k in ("loss", "grad_norm")}
+    want = _train_launches(built.cfg)
+    res = dict(arch=arch, task="train", batch=2, seq=48, backend="aot_eager", dtype=dtype,
+               compile_s=compile_s, first_call=_dynamo_delta(c0, c1),
+               graphs_on_later_calls=recompiled, rel_err=rel, tol=COMPILED_TOL[dtype],
+               launches_per_call=launches, expected=want, card=smi)
+    emit("compilers_aot_eager_train", **res)
+    check(res["first_call"]["graphs"] > 0 and recompiled == 0,
+          f"{arch}: aot_eager train step graphs {res['first_call']}, {recompiled} later")
+    check(max(rel.values()) <= COMPILED_TOL[dtype],
+          f"{arch}: aot_eager train step differs from eager: {rel}")
+    check(launches["aot_eager"] == launches["eager"] == want,
+          f"{arch}: aot_eager train step launches {launches}, expected {want}")
+    return res
+
+
+def phase_compilers_families(smi):
+    """The Figs. 3-4 matrix's cells of the families that train on the card
+    from PR 25 on (``FIG34_FAMILIES``), eager: each launching a step call
+    what ``_train_launches`` counts, the SSD's and RG-LRU's backward
+    kernels included.  Returns the phase's wall and its cells' modes by
+    bench."""
+    from repro_torch.configs import get_arch
+    from repro_torch.runner import BenchmarkRunner
+    t0 = time.perf_counter()
+    runner = BenchmarkRunner(device="cuda")
+    results, launches = _matrix(runner, FIG34_FAMILIES, smi)
+    runner.close()
+    for arch in FIG34_FAMILIES:
+        want = _train_launches(get_arch(arch).reduced())
+        rr = results[f"{arch}/train"]["eager"]
+        check(launches[rr.name] == want,
+              f"compilers: {rr.name} launches {launches[rr.name]} a call, expected {want}")
+    return time.perf_counter() - t0, {b: sorted(m) for b, m in results.items()}
 
 
 def phase_compilers_full(smi, tasks):
@@ -2604,7 +3113,7 @@ def phase_compilers_full(smi, tasks):
     built = serve.built_for_cfg(cfg)
     dtype = "bf16" if cfg.compute_dtype == torch.bfloat16 else "fp32"
     n = cfg.n_layers
-    none = {"flash_attention_bwd": 0, "ssd": 0, "rglru": 0}
+    none = {"flash_attention_bwd": 0, "ssd": 0, "rglru": 0, "ssd_bwd": 0, "rglru_bwd": 0}
     walls, launches, warm = {}, {}, None
     for task, batch, mode, want, profile in (
             ("infer_prefill", 1, "jit", {"flash_attention": n, **none}, True),
@@ -2663,9 +3172,29 @@ def _warm_serve_full(built, smi):
 
 
 def _part_compilers(smi):
-    """The reduced part of the compilers phase: the Figs. 3-4 matrix and
-    the reduced prefills."""
-    return {"compilers_wall": phase_compilers(smi)}
+    """The reduced part of the compilers phase: the Figs. 3-4 matrix's
+    gemma-2b cells and the reduced prefills."""
+    wall, matrix = phase_compilers(smi)
+    return {"compilers_wall": wall, "matrix": matrix}
+
+
+def _part_compilers_internlm2(smi):
+    """The Figs. 3-4 matrix's internlm2-20b cells."""
+    wall, matrix = phase_compilers_internlm2(smi)
+    return {"internlm2_wall": wall, "matrix": matrix}
+
+
+def _part_nightly(smi):
+    """The nightly run, the Figs. 3-4 matrix's cells of the families that
+    train on the card from PR 25 on, then ``serve_compiled_reduced``."""
+    t0 = time.perf_counter()
+    phase_nightly(smi)
+    t1 = time.perf_counter()
+    families, matrix = phase_compilers_families(smi)
+    t2 = time.perf_counter()
+    phase_serve_compiled_reduced(smi)
+    return {"nightly_wall": t1 - t0, "families_wall": families, "matrix": matrix,
+            "serve_compiled_reduced_wall": time.perf_counter() - t2}
 
 
 def _part_runner(smi):
@@ -2710,7 +3239,8 @@ def _part_compilers_train(smi):
 # beside the other processes' work on the card and the host: reported,
 # not gated (no check of this script reads a time of theirs)
 PARTS = {"compilers": _part_compilers, "runner": _part_runner, "dispatch": _part_dispatch,
-         "compilers_full": _part_compilers_full, "compilers_train": _part_compilers_train}
+         "compilers_full": _part_compilers_full, "compilers_train": _part_compilers_train,
+         "compilers_internlm2": _part_compilers_internlm2, "nightly": _part_nightly}
 
 
 def _start_part(name, smi):
@@ -2809,28 +3339,31 @@ def main():
     # every compile of this run is cold: no graph of an earlier run is reused
     shutil.rmtree(INDUCTOR_CACHE_DIR, ignore_errors=True)
     phase_build()
-    fa_cases = phase_kernels()
-    bwd_cases = phase_fa_backward_kernels()
-    ssd_cases = phase_ssd_kernels()
-    rglru_cases = phase_rglru_kernels()
-    phase_rglru_plan_sweep()
-    perf = {"noise": [], "ci_full": [], "walls": dict.fromkeys(
-        ("ci_full", "nightly", "noise", "coverage"), 0.0)}
-    # the compilers phase in two processes of its own (``PARTS``: the
-    # reduced cells and runner_cell, and gemma-2b's full-width cells) while
-    # this one runs the phases that gate no time; the timed full-width
-    # phases run after both have ended
-    t_parts = time.perf_counter()
-    parts = [_start_part(name, smi) for name in ("compilers_train", "compilers_full",
-                                                  "dispatch", "compilers", "runner")]
+    # dispatch's and runner_cell's first minutes are cold compiles on the
+    # host, and the card is the kernel phases' alone meanwhile: they start now
+    parts = []
     try:
+        parts += [_start_part(name, smi) for name in ("dispatch", "runner")]
+        fa_cases = phase_kernels()
+        bwd_cases = phase_fa_backward_kernels()
+        ssd_cases = phase_ssd_kernels()
+        rglru_cases = phase_rglru_kernels()
+        phase_rglru_plan_sweep()
+        ssd_bwd_cases = phase_ssd_bwd_kernels()
+        rglru_bwd_cases = phase_rglru_bwd_kernels()
+        perf = {"noise": [], "ci_full": [], "walls": dict.fromkeys(
+            ("ci_full", "nightly", "noise", "coverage"), 0.0)}
+        # the compile-bound phases in processes of their own (``PARTS``)
+        # while this one runs the phases that gate no time; the timed
+        # full-width phases run after every part has ended
+        t_parts = time.perf_counter()
+        parts += [_start_part(name, smi) for name in ("compilers_train", "compilers_full",
+                                                      "compilers", "compilers_internlm2",
+                                                      "nightly")]
         # the runner's phases, whose step cells compile now (TorchInductor)
         compiled_walls = {}
-        for name, phase in (("nightly", lambda: phase_nightly(smi)),
-                            ("coverage", lambda: phase_coverage(smi)),
-                            ("loadgen", lambda: phase_loadgen(smi)),
-                            ("serve_compiled_reduced",
-                             lambda: phase_serve_compiled_reduced(smi))):
+        for name, phase in (("coverage", lambda: phase_coverage(smi)),
+                            ("loadgen", lambda: phase_loadgen(smi))):
             t_phase = time.perf_counter()
             phase()
             compiled_walls[name] = time.perf_counter() - t_phase
@@ -2847,11 +3380,23 @@ def main():
         # reduced window (64), so the backward's sliding-window mask is live
         phase_train_reference_check("gemma3-12b", seq=88)
         phase_train_reference_check("nemotron-4-15b")
+        # the families that train on the card from PR 25 on; recurrentgemma
+        # past its reduced window (64), so its local layers' backward slides
+        phase_train_reference_check("mamba2-2.7b")
+        phase_train_reference_check("recurrentgemma-9b", seq=88, moments_tol=5e-4)
+        phase_train_reference_check("paligemma-3b")
+        phase_train_reference_check("whisper-large-v3")
+        # mamba2's and recurrentgemma's train steps compiled under
+        # aot_eager: here, where this process would wait for the parts
+        for arch in FIG34_AOT_EAGER:
+            _aot_eager_train(arch, smi)
         t_main = time.perf_counter() - t_parts
         got = {p.name: _join_part(p) for p in parts}
     finally:
         for p in parts:
             _stop_part(p)
+    compiled_walls["nightly"] = got["nightly"]["nightly_wall"]
+    compiled_walls["serve_compiled_reduced"] = got["nightly"]["serve_compiled_reduced_wall"]
     compiled_walls["runner"] = got["runner"]["runner_wall"]
     compiled_walls["dispatch"] = got["dispatch"]["dispatch_wall"]
     cache_faults = got["dispatch"]["cache_faults"]
@@ -2860,7 +3405,17 @@ def main():
     emit("runner_phase_walls", card=smi, walls_s=compiled_walls,
          compiled_mode="jit_donated (TorchInductor)", before_uncompiled_s=RUNNER_WALLS_BEFORE,
          beside_the_compilers_parts=True)
+    # the Figs. 3-4 matrix across its three parts: gemma-2b and
+    # internlm2-20b in every mode, the new families in FIG34_FAMILIES's
+    from repro_torch.runner.scenario import MODES
+    matrix = {**got["compilers"]["matrix"], **got["compilers_internlm2"]["matrix"],
+              **got["nightly"]["matrix"]}
+    want_matrix = {**{f"{a}/train": sorted(MODES) for a in FIG34_DENSE},
+                   **{f"{a}/train": sorted(m) for a, m in FIG34_FAMILIES.items()}}
+    check(matrix == want_matrix, f"compilers: matrix {matrix}, expected {want_matrix}")
     emit("compilers", card=smi, reduced_wall_s=got["compilers"]["compilers_wall"],
+         internlm2_wall_s=got["compilers_internlm2"]["internlm2_wall"],
+         families_wall_s=got["nightly"]["families_wall"], matrix=matrix,
          full_wall_s=got["compilers_full"]["full_wall"],
          train_wall_s=got["compilers_train"]["train_wall"],
          full_width_walls_s={**got["compilers_full"]["walls"],
@@ -2902,6 +3457,16 @@ def main():
         limit = _param_bytes(cfg or get_arch(arch)) + MEMORY_HEADROOM
         launches[arch], variants[arch], _, _ = phase_full_width(arch, per_forward, cfg, limit)
     train_launches, train_bwd_variants = phase_train_full(profiles, perf)
+    # every other family trained at full width, eager: mamba2-2.7b at its
+    # full depth; recurrentgemma-9b at 8 of its 38 layers (at full depth
+    # its fp32 weights, gradients and moments are 137 GB); paligemma-3b and
+    # whisper-large-v3 at the cut depths of their inference phases
+    family_launches, family_scan_bwd = {}, {}
+    for arch, cfg in (("mamba2-2.7b", get_arch("mamba2-2.7b")),
+                      ("recurrentgemma-9b", cut("recurrentgemma-9b", n_layers=8)),
+                      ("paligemma-3b", cut("paligemma-3b", n_layers=6)),
+                      ("whisper-large-v3", cut("whisper-large-v3", n_layers=2, n_enc_layers=2))):
+        family_launches[arch], family_scan_bwd[arch] = phase_train_full_family(arch, cfg, smi)
     phase_profile_report(profiles)
     compiled_launches = {**got["compilers_full"]["launches"],
                          **got["compilers_train"]["launches"]}
@@ -2945,7 +3510,24 @@ def main():
                              "rings, two warpgroups exchanging P and dS through shared memory",
                        "simt": "fp32 and other head dims, CUDA cores"},
              launches_by_variant=train_bwd_variants,
-             launches_per="gemma-2b full-width train step (B=1, S=2048)")],
+             launches_per="gemma-2b full-width train step (B=1, S=2048)"),
+        dict(_kernel_entry("ssd_bwd", SSD_BWD_SOURCE, SSD_BWD_REPLACES,
+                           family_launches["mamba2-2.7b"]["ssd_bwd"], ssd_bwd_cases,
+                           "mamba2_train"),
+             max_rel_err=max(c["max_rel_err"] for c in ssd_bwd_cases),
+             variants={"simt": "chunk and gradient states, the two carries, the chunks' "
+                               "gradients and the heads' sums: CUDA cores, fp32"},
+             launches_by_variant=family_scan_bwd["mamba2-2.7b"]["ssd_bwd"],
+             launches_per="mamba2-2.7b full-width train step (64 layers, B=1, S=2048)"),
+        dict(_kernel_entry("rglru_bwd", RGLRU_BWD_SOURCE, RGLRU_BWD_REPLACES,
+                           family_launches["recurrentgemma-9b"]["rglru_bwd"], rglru_bwd_cases,
+                           "recurrentgemma_train", dtype="fp32"),
+             max_rel_err=max(c["max_rel_err"] for c in rglru_bwd_cases),
+             variants={"seq": "one thread per (row, lane) walks the steps backward"},
+             launches_by_variant=family_scan_bwd["recurrentgemma-9b"]["rglru_bwd"],
+             launches_per="recurrentgemma-9b full-width train step (8 of 38 layers, B=1, "
+                          "S=2048)")],
+        "train_launches_per_step_by_family": family_launches,
         "gemma2b_train_flash_forward_launches_per_step": train_launches["flash_attention"],
         "recurrentgemma_flash_attention_launches":
             launches["recurrentgemma-9b"]["flash_attention"],

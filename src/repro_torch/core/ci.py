@@ -39,26 +39,30 @@ def run_nightly(store: MetricStore, *, archs: Optional[List[str]] = None,
                 hooks: Optional[Dict[str, RegressionHook]] = None,
                 runner: Optional[BenchmarkRunner] = None,
                 jobs: Optional[int] = None,
-                exclude: Sequence[str] = ()) -> NightlyReport:
+                exclude: Sequence[str] = (),
+                modes: Sequence[str] = ("jit_donated",)) -> NightlyReport:
     """``jobs=N`` shards the night's matrix across N worker subprocesses
     (defaults to the runner's own ``jobs`` setting; the hooks' slowdown
     and leak ride in each job); the persistent pool keeps worker caches
     warm across repeated nights.  ``batches``/``seqs`` pick the probe
     cells — noisy shared hosts want small ones, so an injected regression
     dwarfs host jitter.  ``exclude`` drops the cells whose names match one
-    of its patterns (``ScenarioMatrix.exclude``).
+    of its patterns (``ScenarioMatrix.exclude``); ``modes`` are the cells'
+    compiler modes (the reference's nightly: ``jit_donated`` alone), so a
+    night may run some cells uncompiled by excluding them in the others.
 
     Every measured result (ok or error, baseline night or not) is also
     appended to the store's history log as a time-series point
     (``MetricStore.log_result``) without touching the baseline pointer.
-    A cell that comes back as an error (a refused train cell among them)
+    A cell that comes back as an error (a cell the port refuses among them)
     is filed as a ``status`` issue carrying its error."""
     t0 = time.perf_counter()
     issues: List[Issue] = []
     owned = runner is None      # close what we create (shard workers!)
     runner = runner or BenchmarkRunner(runs=runs)
     matrix = ScenarioMatrix(archs=sorted(archs or ARCHS), tasks=tasks,
-                            batches=batches, seqs=seqs, exclude=tuple(exclude))
+                            batches=batches, seqs=seqs, modes=tuple(modes),
+                            exclude=tuple(exclude))
     ran = 0
     try:
         for rr in runner.run_matrix(matrix, hooks=hooks, runs=runs, jobs=jobs):

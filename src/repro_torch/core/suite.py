@@ -3,12 +3,9 @@
 Every entry is a computation-phase benchmark (paper §2.2): one step over
 device-resident inputs, no data loading inside the measured region.  The
 port registers the train, prefill and decode tasks of the archs it has
-ported.  On the card, training runs the dense family only: the ssm and
-hybrid families' kernels (SSD, RG-LRU) have no backward yet, and their
-CUDA launches raise under autograd (ROADMAP Queue 1); the vlm and encdec
-families do not train yet on either device (``Model.loss`` raises).
-``make`` raises those refusals for a train entry before it builds a state,
-so a refused cell compiles nothing.
+ported.  Every family trains on both devices: on the card each kernel's
+gradient is a hand-written backward kernel (flash attention, the SSD and
+the RG-LRU, ``kernels/library.py``).
 """
 from __future__ import annotations
 
@@ -99,7 +96,6 @@ class Benchmark:
             from repro_torch.launch.steps import make_train_step
             from repro_torch.models.model import Model
             from repro_torch.optim.adamw import adamw_init
-            _refuse_training(cfg, model.device)
             # the state's own model over a copy of the weights: the state
             # is updated in place, and the cached Built must stay valid
             # (and grad-free) for the other tasks of this arch
@@ -114,23 +110,6 @@ class Benchmark:
         model.prefill(batch_dict, cache)
         return ((lambda m, t, c: m.decode_step(t, c)),
                 (model, toks[:, :1].contiguous(), cache), (2,))
-
-
-#: the kernel whose missing backward refuses each family's training on the
-#: card
-_CARD_BACKWARDLESS = {"ssm": "ssd", "hybrid": "rglru"}
-
-
-def _refuse_training(cfg, device: torch.device) -> None:
-    """Raise, before a state is built or a step compiled, the error the
-    step itself would raise: a family without a loss (``Model.loss``), or
-    on the card a kernel without a backward (``kernels.library``)."""
-    from repro_torch.kernels.library import no_backward_error
-    from repro_torch.models.model import UNTRAINED_FAMILIES, untrained_family_error
-    if cfg.family in UNTRAINED_FAMILIES:
-        raise untrained_family_error(cfg)
-    if device.type == "cuda" and cfg.family in _CARD_BACKWARDLESS:
-        raise no_backward_error(_CARD_BACKWARDLESS[cfg.family])
 
 
 def get_benchmark(arch: str, task: str) -> Benchmark:

@@ -1,11 +1,13 @@
 """The port's kernels as ``torch.library`` custom ops.
 
-Four ops in the ``repro_torch`` namespace:
+Six ops in the ``repro_torch`` namespace:
 
   repro_torch::flash_attention      the flash-attention forward (K1)
   repro_torch::flash_attention_bwd  its backward (no TPU counterpart)
   repro_torch::ssd                  the Mamba-2 SSD chunked scan (K2)
+  repro_torch::ssd_bwd              its backward (no TPU counterpart)
   repro_torch::rglru                the RG-LRU scan (K3)
+  repro_torch::rglru_bwd            its backward (no TPU counterpart)
 
 Each op has a CUDA implementation, the kernel's ctypes launch
 (``kernel.py``), and a CPU implementation, the kernel's plain version
@@ -18,20 +20,18 @@ one.
 
 Each implementation runs whole inside ``accounting.kernel_scope``, which
 is therefore never traced: the analysis and coverage passes and the CPU
-profiler count one call of the kernel's ``cost()`` work, on either device
-and whether or not the step was compiled.  The passes' modes see the op
-itself too, and leave its namespace (``accounting.OP_NAMESPACE``) to the
-scope.
+profiler count one call of the kernel's ``cost()`` (a backward's
+``cost_bwd()``) work, on either device and whether or not the step was
+compiled.  The passes' modes see the op itself too, and leave its
+namespace (``accounting.OP_NAMESPACE``) to the scope.
 
-Gradients.  ``flash_attention`` has a registered autograd formula whose
-backward is the ``flash_attention_bwd`` op: the backward kernel on the
-card, and on the CPU ``attention_ref`` differentiated by autograd (the
-op's implementation runs below autograd, which ``_autograd_on`` turns on
-again for it), the values autograd through ``attention_ref`` gives.
-The SSD and the RG-LRU have no backward kernel: asked for a gradient on
-the card, the op raises when its forward runs (and so does a compile that
-traces that backward); on the CPU their backward differentiates the
-plain version again by autograd.
+Gradients.  Each forward op has a registered autograd formula whose
+backward is its backward op: the backward kernel on the card, and on the
+CPU the plain version differentiated by autograd (the op's implementation
+runs below autograd, which ``_autograd_on`` turns on again for it), the
+values autograd through ``attention_ref``, ``ssd_ref`` and
+``rglru_blocked`` gives.  No gradient on the card goes through a plain
+version.
 
 The per-row offsets of flash attention (``q_offset``, ``kv_len``: an int
 or a per-row (B,) tensor, ``ref.IntOrRows``) fit no one schema type, so
@@ -95,14 +95,16 @@ def _autograd_on():
 
 def _plain_grads(fn, inputs, grads, needs) -> Tuple[Optional[Tensor], ...]:
     """The gradients of ``fn`` at ``inputs`` for the output gradients
-    ``grads``, by autograd: one per input, None where ``needs`` wants
-    none or the input is None."""
+    ``grads`` (None: zeros), by autograd: one per input, None where
+    ``needs`` wants none or the input is None."""
     with torch.enable_grad():
         leaves = [None if t is None else t.detach().requires_grad_() for t in inputs]
         outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = [torch.zeros_like(o) if g is None else g for g, o in zip(grads, outs)]
         present = [i for i, t in enumerate(leaves) if t is not None]
-        got = torch.autograd.grad(outs if isinstance(outs, tuple) else (outs,),
-                                  [leaves[i] for i in present], grads, allow_unused=True)
+        got = torch.autograd.grad(outs, [leaves[i] for i in present], grads,
+                                  allow_unused=True)
     out = [None] * len(inputs)
     for i, g in zip(present, got):
         if needs[i]:
@@ -226,33 +228,6 @@ flash_attention.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 # ---- the SSD and the RG-LRU -----------------------------------------------------
 
-def no_backward_error(name: str) -> NotImplementedError:
-    """The refusal of a gradient through the kernel ``name`` on the card."""
-    return NotImplementedError(
-        f"{name}: the CUDA kernel has no backward yet, and its output would "
-        f"carry no gradient (ROADMAP Queue 1: {name} training on the card)")
-
-
-def _no_backward_on_the_card(name: str, inputs) -> None:
-    if any(isinstance(t, Tensor) and t.is_cuda for t in inputs):
-        raise no_backward_error(name)
-
-
-def _plain_setup(name: str):
-    def setup(ctx, inputs, output):
-        _no_backward_on_the_card(name, inputs)
-        ctx.save_for_backward(*inputs)
-    return setup
-
-
-def _plain_backward(plain):
-    """The backward of an op whose CPU implementation is ``plain``:
-    autograd through ``plain`` at the saved inputs."""
-    def backward(ctx, *grads):
-        return _plain_grads(plain, ctx.saved_tensors, grads, ctx.needs_input_grad)
-    return backward
-
-
 def _ssd_work(x: Tensor, Bm: Tensor, init_state: Optional[Tensor]):
     B, S, H, P = x.shape
     return lambda: sk.cost(B, S, H, P, Bm.shape[-1], x.dtype, init_state is not None)
@@ -274,15 +249,23 @@ def _unit_rows(t: Tensor) -> Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _ssd_x(x: Tensor) -> Tensor:
+    """x as the SSD kernels take it: unit stride over P, stride P over H."""
+    P = x.shape[-1]
+    if x.stride(-1) != 1 or (x.stride(2) != P and x.shape[2] > 1):
+        return x.contiguous()
+    return x
+
+
+def _contiguous(t: Optional[Tensor]) -> Optional[Tensor]:
+    return None if t is None else t.contiguous()
+
+
 @ssd.register_kernel("cuda")
 def _ssd_cuda(x, dt, A, Bm, Cm, init_state):
     with kernel_scope("ssd", _ssd_work(x, Bm, init_state), x.device):
-        P = x.shape[-1]
-        if x.stride(-1) != 1 or (x.stride(2) != P and x.shape[2] > 1):
-            x = x.contiguous()
-        return sk.ssd_cuda(x, dt.contiguous(), A.contiguous(), _unit_rows(Bm),
-                           _unit_rows(Cm),
-                           None if init_state is None else init_state.contiguous())
+        return sk.ssd_cuda(_ssd_x(x), dt.contiguous(), A.contiguous(), _unit_rows(Bm),
+                           _unit_rows(Cm), _contiguous(init_state))
 
 
 @ssd.register_fake
@@ -291,7 +274,57 @@ def _ssd_fake(x, dt, A, Bm, Cm, init_state):
     return x.new_empty(x.shape), x.new_empty((B, H, P, Bm.shape[-1]), dtype=torch.float32)
 
 
-ssd.register_autograd(_plain_backward(ssd_ref), setup_context=_plain_setup("ssd"))
+def _ssd_bwd_work(x: Tensor, Bm: Tensor, init_state: Optional[Tensor],
+                  dstate: Optional[Tensor]):
+    B, S, H, P = x.shape
+    return lambda: sk.cost_bwd(B, S, H, P, Bm.shape[-1], x.dtype, init_state is not None,
+                               dstate is not None)
+
+
+@custom_op(f"{OP_NAMESPACE}::ssd_bwd", mutates_args=(), device_types="cpu")
+def ssd_bwd(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+            init_state: Optional[Tensor], dy: Tensor, dstate: Optional[Tensor]
+            ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """(dx, ddt, dA, dBm, dCm, dinit) of ``ssd`` at its output gradients
+    ``dy`` and ``dstate`` (None: zeros), each shaped and typed as its
+    input (dinit (B,H,P,N) fp32, zeros when ``init_state`` is None); the
+    CPU implementation differentiates ``ssd_ref`` by autograd."""
+    with kernel_scope("ssd_bwd", _ssd_bwd_work(x, Bm, init_state, dstate), x.device), \
+            _autograd_on():
+        grads = _plain_grads(ssd_ref, (x, dt, A, Bm, Cm, init_state), (dy, dstate),
+                             (True,) * 6)
+        B, S, H, P = x.shape
+        dinit = grads[5] if init_state is not None else x.new_zeros(
+            (B, H, P, Bm.shape[-1]), dtype=torch.float32)
+        return (*(g.contiguous() for g in grads[:5]), dinit.contiguous())
+
+
+@ssd_bwd.register_kernel("cuda")
+def _ssd_bwd_cuda(x, dt, A, Bm, Cm, init_state, dy, dstate):
+    with kernel_scope("ssd_bwd", _ssd_bwd_work(x, Bm, init_state, dstate), x.device):
+        return sk.ssd_bwd_cuda(_ssd_x(x), dt.contiguous(), A.contiguous(), _unit_rows(Bm),
+                               _unit_rows(Cm), _contiguous(init_state), dy.contiguous(),
+                               _contiguous(dstate))
+
+
+@ssd_bwd.register_fake
+def _ssd_bwd_fake(x, dt, A, Bm, Cm, init_state, dy, dstate):
+    B, S, H, P = x.shape
+    return (x.new_empty(x.shape), dt.new_empty(dt.shape), A.new_empty(A.shape),
+            Bm.new_empty(Bm.shape), Cm.new_empty(Cm.shape),
+            x.new_empty((B, H, P, Bm.shape[-1]), dtype=torch.float32))
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _ssd_backward(ctx, dy, dstate):
+    grads = ssd_bwd(*ctx.saved_tensors, dy, dstate)
+    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+ssd.register_autograd(_ssd_backward, setup_context=_save_inputs)
 
 
 @custom_op(f"{OP_NAMESPACE}::rglru", mutates_args=(), device_types="cpu")
@@ -319,14 +352,16 @@ def _fp32_rows(t: Tensor) -> Tensor:
     return _unit_rows(t.float())
 
 
+def _fp32(t: Optional[Tensor]) -> Optional[Tensor]:
+    return None if t is None else t.float().contiguous()
+
+
 @rglru.register_kernel("cuda")
 def _rglru_cuda(x, a, init_state):
     B, S, D = x.shape
     work = lambda: rk.cost(B, S, D, init_state is not None)   # noqa: E731
     with kernel_scope("rglru", work, x.device):
-        return _with_last(rk.rglru_cuda(
-            _fp32_rows(x), _fp32_rows(a),
-            None if init_state is None else init_state.float().contiguous()))
+        return _with_last(rk.rglru_cuda(_fp32_rows(x), _fp32_rows(a), _fp32(init_state)))
 
 
 @rglru.register_fake
@@ -336,5 +371,52 @@ def _rglru_fake(x, a, init_state):
             x.new_empty((B, D), dtype=torch.float32))
 
 
-rglru.register_autograd(_plain_backward(_rglru_plain),
-                        setup_context=_plain_setup("rglru"))
+def _rglru_bwd_work(x: Tensor, init_state: Optional[Tensor], dh_last: Optional[Tensor]):
+    B, S, D = x.shape
+    return lambda: rk.cost_bwd(B, S, D, init_state is not None, dh_last is not None)
+
+
+@custom_op(f"{OP_NAMESPACE}::rglru_bwd", mutates_args=(), device_types="cpu")
+def rglru_bwd(x: Tensor, a: Tensor, h: Tensor, init_state: Optional[Tensor], dh: Tensor,
+              dh_last: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dx, da, dinit) of ``rglru`` at its output ``h`` and output
+    gradients ``dh`` and ``dh_last`` (None: zeros), dx and da in x's and
+    a's dtypes, dinit (B, D) fp32 (zeros when ``init_state`` is None); the
+    CPU implementation differentiates ``rglru_blocked`` by autograd (``h``
+    unused)."""
+    with kernel_scope("rglru_bwd", _rglru_bwd_work(x, init_state, dh_last), x.device), \
+            _autograd_on():
+        dx, da, dinit = _plain_grads(_rglru_plain, (x, a, init_state), (dh, dh_last),
+                                     (True,) * 3)
+        if dinit is None:
+            dinit = x.new_zeros((x.shape[0], x.shape[2]), dtype=torch.float32)
+        return dx.contiguous(), da.contiguous(), dinit.contiguous()
+
+
+@rglru_bwd.register_kernel("cuda")
+def _rglru_bwd_cuda(x, a, h, init_state, dh, dh_last):
+    with kernel_scope("rglru_bwd", _rglru_bwd_work(x, init_state, dh_last), x.device):
+        dx, da, dinit = rk.rglru_bwd_cuda(_fp32_rows(x), _fp32_rows(a), h.contiguous(),
+                                          _fp32(init_state), dh.float().contiguous(),
+                                          _fp32(dh_last))
+        return dx.to(x.dtype), da.to(a.dtype), dinit
+
+
+@rglru_bwd.register_fake
+def _rglru_bwd_fake(x, a, h, init_state, dh, dh_last):
+    return (x.new_empty(x.shape), a.new_empty(a.shape),
+            x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32))
+
+
+def _rglru_setup(ctx, inputs, output):
+    x, a, init_state = inputs
+    ctx.save_for_backward(x, a, init_state, output[0])
+
+
+def _rglru_backward(ctx, dh, dh_last):
+    x, a, init_state, h = ctx.saved_tensors
+    grads = rglru_bwd(x, a, h, init_state, dh, dh_last)
+    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+rglru.register_autograd(_rglru_backward, setup_context=_rglru_setup)

@@ -17,6 +17,10 @@ variant is chosen here, by ``plan()``, from shapes alone:
                 memory busy.
 
 No variant stands in for another that fails to build or launch.
+
+The backward (``csrc/rglru_bwd.cu``, its own library) has one variant,
+``seq`` (``plan_bwd``), launched by ``rglru_bwd_cuda``: one thread per
+(row, lane) walks the steps backward over the forward's output.
 """
 from __future__ import annotations
 
@@ -155,3 +159,97 @@ def rglru_cuda(x: torch.Tensor, a: torch.Tensor,
 rglru_cuda.launches = 0
 #: the same calls by variant
 rglru_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+# ---- the backward (csrc/rglru_bwd.cu) -------------------------------------------
+
+BWD_VARIANTS = ("seq",)
+BWD_VARIANT_IDS = {name: i for i, name in enumerate(BWD_VARIANTS)}
+
+
+def plan_bwd(B: int, S: int, D: int) -> str:
+    """The backward's variant for one call: ``seq`` (one thread per (row,
+    lane) walks the steps backward), the only one."""
+    return "seq"
+
+
+def cost_bwd(B: int, S: int, D: int, init: bool, dh_last: bool) -> Tuple[float, float]:
+    """(flops, bytes) of one backward call, whatever computes it: ~12 fp32
+    operations an element (the gate s(a) and its slope, the carried
+    gradient's add and decay, dx, da), and x, a, h and dh read and dx and
+    da written once in fp32 (the initial state and ``dh_last`` read when
+    given, dinit always written)."""
+    return 12.0 * B * S * D, float(4 * (6 * B * S * D + B * D * (1 + int(init) + int(dh_last))))
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    fn = lib.rglru_backward
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+BWD_LIBRARY = CudaLibrary("rglru_bwd", CSRC / "rglru_bwd.cu", _bind_bwd)
+#: the last backward build's {"seconds", "ptxas", "path"}
+bwd_build_info = BWD_LIBRARY.build_info
+bwd_library = BWD_LIBRARY.load
+
+
+def rglru_bwd_cuda(x: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
+                   init_state: Optional[torch.Tensor], dh: torch.Tensor,
+                   dh_last: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward: (dx, da, dinit) fp32 of ``rglru_cuda`` at its
+    output ``h`` and output gradients ``dh`` ((B, S, D) fp32 contiguous,
+    like h) and ``dh_last`` ((B, D) fp32 contiguous, or None for zeros).
+    x and a as ``rglru_cuda`` takes them; dinit is computed whether or not
+    ``init_state`` was given."""
+    if x.ndim != 3:
+        _fail(f"x must be (B, S, D), got {tuple(x.shape)}")
+    B, S, D = x.shape
+    dev = x.device
+    if dev.type != "cuda":
+        _fail(f"rglru_bwd_cuda needs CUDA tensors, got {dev}")
+    for name, t in (("x", x), ("a", a), ("h", h), ("dh", dh)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, S, D):
+            _fail(f"{name} must be float32 {(B, S, D)} on {dev}, got {t.dtype} "
+                  f"{tuple(t.shape)} on {t.device}")
+        if t.stride(2) != 1 and D > 1:
+            _fail(f"{name} must have unit stride over D, got {t.stride()}")
+    if not (h.is_contiguous() and dh.is_contiguous()):
+        _fail("h and dh must be contiguous")
+    for name, t in (("init_state", init_state), ("dh_last", dh_last)):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or tuple(t.shape) != (B, D) or not t.is_contiguous()):
+            _fail(f"{name} must be a contiguous float32 {(B, D)} tensor on {dev}, "
+                  f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if S < 1:
+        _fail("S must be at least 1")
+    variant = plan_bwd(B, S, D)
+    dx = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    da = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    dinit = torch.empty((B, D), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    lib = bwd_library()
+    # autograd runs the backward on a thread of its own, where no card is
+    # current: make x's card current for the launch
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rglru_backward(
+            x.data_ptr(), a.data_ptr(), h.data_ptr(), ptr(init_state), dh.data_ptr(),
+            ptr(dh_last), dx.data_ptr(), da.data_ptr(), dinit.data_ptr(), B, S, D,
+            x.stride(0), x.stride(1), a.stride(0), a.stride(1), BWD_VARIANT_IDS[variant],
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru backward kernel ({variant}) launch failed: CUDA error {rc}")
+    rglru_bwd_cuda.launches += 1
+    rglru_bwd_cuda.launches_by_variant[variant] += 1
+    return dx, da, dinit
+
+
+#: backward calls that launched the kernel
+rglru_bwd_cuda.launches = 0
+#: the same calls by variant
+rglru_bwd_cuda.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)

@@ -9,9 +9,10 @@ card; the kernel takes any S and D, so nothing is padded.
 The call goes through the custom op ``repro_torch::rglru``
 (``kernels/library.py``), and dispatch is by where the tensors lie, and
 nowhere else: a CPU tensor goes to ``ref.rglru_blocked``; a CUDA tensor
-launches the kernel, or the call raises (also when a gradient is wanted:
-the kernel has no backward yet).  There is no fallback from one to the
-other.  Either call runs whole in ``accounting.kernel_scope`` inside the
+launches the kernel, or the call raises.  Its gradient is the op
+``repro_torch::rglru_bwd``: the backward kernel (``csrc/rglru_bwd.cu``) on
+the card, autograd through ``ref.rglru_blocked`` on the CPU.  There is no
+fallback from one to the other.  Either call runs whole in ``accounting.kernel_scope`` inside the
 op: the profiler and the analysis and coverage passes count it as one
 attention call of ``kernel.cost`` work on both devices.  The reference's
 ``block_t``/``block_d`` arguments and tuning-DB lookup have no

@@ -131,3 +131,32 @@ def rglru_chunked_ref(x: torch.Tensor, a: torch.Tensor,
         s = a4[:, :, u] * s + b4[:, :, u]
         out.append(s)
     return torch.stack(out, dim=2).reshape(B, -1, D)[:, :S]
+
+
+def rglru_bwd_ref(x: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
+                  init_state: Optional[torch.Tensor], dh: torch.Tensor,
+                  dh_last: Optional[torch.Tensor]):
+    """The gradients of ``rglru_blocked`` (output h, and its last step a
+    second time) at ``dh`` and ``dh_last`` (None for zeros), computed as
+    the backward kernel (``csrc/rglru_bwd.cu``) computes them, by the
+    reverse recurrence over the forward's output ``h``: (dx, da, dinit)
+    fp32.  With s(a) = sqrt(max(1 - a^2, 1e-12)), g_t = dh_t + a_{t+1}
+    g_{t+1} (plus ``dh_last`` at the last step), dx_t = g_t s(a_t), da_t =
+    g_t h_{t-1} + g_t x_t s'(a_t), s'(a) = -a / s(a) where 1 - a^2 >
+    1e-12 and 0 elsewhere, dinit = a_0 g_0.  Only the tests use it."""
+    B, S, D = x.shape
+    xf, af = x.float(), a.float()
+    one = 1.0 - af * af
+    s = torch.sqrt(torch.clamp(one, min=1e-12))
+    ds = torch.where(one > 1e-12, -af / s, torch.zeros_like(af))
+    h0 = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    h_prev = torch.cat([h0[:, None], h.float()[:, :-1]], dim=1)
+    g = torch.zeros_like(h0) if dh_last is None else dh_last.float().clone()
+    dx, da = torch.empty_like(xf), torch.empty_like(af)
+    for t in reversed(range(S)):
+        g = g + dh[:, t].float()
+        dx[:, t] = g * s[:, t]
+        da[:, t] = g * h_prev[:, t] + g * xf[:, t] * ds[:, t]
+        g = af[:, t] * g
+    return dx, da, g

@@ -17,6 +17,10 @@ variant is chosen here, by ``plan()``, from shapes and dtype alone:
              any other P, N (multiples of 8, at most 128).
 
 No variant stands in for another that fails to build or launch.
+
+The backward (``csrc/ssd_bwd.cu``, its own library) has one variant,
+``simt`` (``plan_bwd``), launched by ``ssd_bwd_cuda``: the forward's three
+passes reversed, every product on the CUDA cores in fp32.
 """
 from __future__ import annotations
 
@@ -203,3 +207,172 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_cuda.launches = 0
 #: the same calls by variant
 ssd_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+# ---- the backward (csrc/ssd_bwd.cu) ---------------------------------------------
+
+BWD_VARIANTS = ("simt",)
+BWD_VARIANT_IDS = {name: i for i, name in enumerate(BWD_VARIANTS)}
+#: dynamic shared memory one block may have on an H100 (227 KB)
+MAX_BLOCK_SMEM = 232448
+
+
+def bwd_shared_memory_bytes(P: int, N: int) -> Tuple[int, int]:
+    """Dynamic shared memory of one block of the backward's pass 1 (chunk
+    and gradient states) and pass 3 (the chunk's gradients) at (P, N), as
+    ``csrc/ssd_bwd.cu`` sizes them: fp32 tiles with odd row strides."""
+    ld = lambda n: n + 1   # noqa: E731
+    state = 2 * CHUNK + CHUNK * ld(P) + CHUNK * ld(N)
+    chunk = (8 * CHUNK + 2 * CHUNK * ld(P) + 2 * CHUNK * ld(N) + P * ld(N)
+             + 3 * CHUNK * (CHUNK + 1) + 8)
+    return 4 * state, 4 * chunk
+
+
+def plan_bwd(B: int, S: int, H: int, P: int, N: int, dtype: torch.dtype) -> str:
+    """The backward's variant for one call: ``simt`` (every product on the
+    CUDA cores in fp32), the only one.  Raises for what it does not take:
+    another dtype, P or N not a multiple of 8 in [8, 128], or a shape whose
+    pass-3 block needs more shared memory than a block may have (P = N =
+    128)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"ssd backward: dtype {dtype} not supported (bf16 or fp32)")
+    for name, d in (("head_dim P", P), ("d_state N", N)):
+        if d % 8 or not 8 <= d <= MAX_DIM:
+            raise ValueError(f"ssd backward: {name}={d} must be a multiple of 8 "
+                             f"and at most {MAX_DIM}")
+    if bwd_shared_memory_bytes(P, N)[1] > MAX_BLOCK_SMEM:
+        raise ValueError(f"ssd backward: P={P}, N={N} needs "
+                         f"{bwd_shared_memory_bytes(P, N)[1]} bytes of shared memory "
+                         f"a block (at most {MAX_BLOCK_SMEM})")
+    return "simt"
+
+
+def cost_bwd(B: int, S: int, H: int, P: int, N: int, dtype: torch.dtype, init: bool,
+             dstate: bool) -> Tuple[float, float]:
+    """(flops, bytes) of one backward call: the chunked algorithm's
+    products at the backward kernel's ``CHUNK`` (C·Bᵀ once per row and
+    chunk; per head dy·xᵀ, the two masked products for dx and the two for
+    dB and dC, and five (P, N)-state products a step: the chunk and
+    gradient states, R·B, Rᵀ·x, h_inᵀ·dy), and the bytes of x, dt, A, B, C
+    and dy read once and their gradients written once (the initial state
+    and ``dstate`` read when given, dinit always written).  The products
+    bound the call, so they are counted at the chunk the kernel computes
+    in, not at ``WORK_CHUNK``, whose intra-chunk products are 4x as many:
+    the bound is then no more than the work the call does."""
+    flops = 0.0
+    for s0 in range(0, S, CHUNK):
+        n = min(CHUNK, S - s0)
+        flops += B * (2.0 * n * n * N + H * (4.0 * n * n * P + 4.0 * n * n * N
+                                             + 10.0 * n * P * N))
+    state = 4 * B * H * P * N
+    nbytes = (dtype.itemsize * (3 * B * S * H * P + 4 * B * S * N) + 4 * (2 * B * S * H + 2 * H)
+              + state * (1 + int(init) + int(dstate)))
+    return flops, float(nbytes)
+
+
+def bwd_scratch_floats(B: int, S: int, H: int, P: int, N: int) -> int:
+    """Floats of the backward's scratch: the chunk states and gradient
+    states (B, n_chunks, H, P, N) fp32, cum_last and dA's partials (B,
+    n_chunks, H), and dB's and dC's per-head partials (B, S, H, N), n_chunks
+    = ceil(S / CHUNK)."""
+    nc = math.ceil(S / CHUNK)
+    return 2 * B * nc * H * P * N + 2 * B * nc * H + 2 * B * S * H * N
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    fn = lib.ssd_backward
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.ssd_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
+    lib.ssd_bwd_scratch_floats.restype = ctypes.c_size_t
+    lib.ssd_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.ssd_bwd_chunk.restype = ctypes.c_int
+    if lib.ssd_bwd_chunk() != CHUNK:
+        raise RuntimeError(f"csrc/ssd_bwd.cu has chunk {lib.ssd_bwd_chunk()}, "
+                           f"kernel.py expects {CHUNK}")
+    probe = (2, 100, 3, 16, 24)
+    if lib.ssd_bwd_scratch_floats(*probe) != bwd_scratch_floats(*probe) or any(
+            lib.ssd_bwd_smem_bytes(k + 1, 64, 128) != bwd_shared_memory_bytes(64, 128)[k]
+            for k in (0, 1)):
+        raise RuntimeError("csrc/ssd_bwd.cu and kernel.py size the backward's "
+                           "scratch or shared memory differently")
+
+
+BWD_LIBRARY = CudaLibrary("ssd_bwd", CSRC / "ssd_bwd.cu", _bind_bwd)
+#: the last backward build's {"seconds", "ptxas", "path"}
+bwd_build_info = BWD_LIBRARY.build_info
+bwd_library = BWD_LIBRARY.load
+
+
+def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, init_state: Optional[torch.Tensor], dy: torch.Tensor,
+                 dstate: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward: (dx, ddt, dA, dBm, dCm, dinit) of ``ssd_cuda``
+    at its output gradients ``dy`` (y-shaped, x's dtype, contiguous) and
+    ``dstate`` ((B, H, P, N) fp32 contiguous, or None for zeros).  The
+    inputs as ``ssd_cuda`` takes them.  dx, dBm and dCm come back
+    contiguous in x's dtype, ddt, dA and dinit in fp32; dinit is computed
+    whether or not ``init_state`` was given."""
+    dev = x.device
+    if dev.type != "cuda":
+        _fail(f"ssd_bwd_cuda needs CUDA tensors, got {dev}")
+    if x.ndim != 4 or Bm.ndim != 3:
+        _fail(f"x must be (B, S, H, P) and Bm (B, S, N), got {tuple(x.shape)}, "
+              f"{tuple(Bm.shape)}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    variant = plan_bwd(B, S, H, P, N, x.dtype)
+    for name, t, shape, dtype in (("Bm", Bm, (B, S, N), x.dtype),
+                                  ("Cm", Cm, (B, S, N), x.dtype),
+                                  ("dt", dt, (B, S, H), torch.float32),
+                                  ("A", A, (H,), torch.float32),
+                                  ("dy", dy, (B, S, H, P), x.dtype)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            _fail(f"{name} must be {dtype} {shape} on {dev}, got "
+                  f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if x.stride(3) != 1 or (x.stride(2) != P and H > 1):
+        _fail(f"x must have strides (*, *, {P}, 1), got {x.stride()}")
+    if Bm.stride(2) != 1 or Cm.stride(2) != 1:
+        _fail("Bm and Cm must have unit stride over N")
+    if not (dt.is_contiguous() and A.is_contiguous() and dy.is_contiguous()):
+        _fail("dt, A and dy must be contiguous")
+    for name, t in (("init_state", init_state), ("dstate", dstate)):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or tuple(t.shape) != (B, H, P, N) or not t.is_contiguous()):
+            _fail(f"{name} must be a contiguous float32 {(B, H, P, N)} tensor on "
+                  f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dBm = torch.empty((B, S, N), dtype=x.dtype, device=dev)
+    dCm = torch.empty((B, S, N), dtype=x.dtype, device=dev)
+    dinit = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(bwd_scratch_floats(B, S, H, P, N), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    lib = bwd_library()
+    # autograd runs the backward on a thread of its own, where no card is
+    # current: make x's card current for the launch
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ssd_backward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            ptr(init_state), dy.data_ptr(), ptr(dstate), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), dinit.data_ptr(),
+            scratch.data_ptr(), B, S, H, P, N, x.stride(0), x.stride(1), Bm.stride(0),
+            Bm.stride(1), Cm.stride(0), Cm.stride(1), int(x.dtype == torch.bfloat16),
+            BWD_VARIANT_IDS[variant], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd backward kernel ({variant}) launch failed: CUDA error {rc}")
+    ssd_bwd_cuda.launches += 1
+    ssd_bwd_cuda.launches_by_variant[variant] += 1
+    return dx, ddt, dA, dBm, dCm, dinit
+
+
+#: backward calls that launched the kernels (its passes are one call)
+ssd_bwd_cuda.launches = 0
+#: the same calls by variant
+ssd_bwd_cuda.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)

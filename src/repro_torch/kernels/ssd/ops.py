@@ -10,9 +10,10 @@ ragged last chunk is masked inside the kernel, so nothing is padded.
 The call goes through the custom op ``repro_torch::ssd``
 (``kernels/library.py``), and dispatch is by where the tensors lie, and
 nowhere else: a CPU tensor goes to ``ref.ssd_ref``; a CUDA tensor launches
-the kernel (the variant ``kernel.plan()`` names), or the call raises; it
-raises too when a gradient is wanted, since the kernel has no backward
-yet.  There is no fallback from one to the other.  Either call runs whole
+the kernel (the variant ``kernel.plan()`` names), or the call raises.  Its
+gradient is the op ``repro_torch::ssd_bwd``: the backward kernel
+(``csrc/ssd_bwd.cu``) on the card, autograd through ``ref.ssd_ref`` on the
+CPU.  There is no fallback from one to the other.  Either call runs whole
 in ``accounting.kernel_scope`` inside the op: the profiler and the
 analysis and coverage passes count it as one attention call of
 ``kernel.cost`` work on both devices.  Both chunk by the kernel's 64

@@ -40,7 +40,8 @@ Training: ``loss(batch)`` is the reference's next-token NLL (fp32, from
 ``logsumexp - gold``; chunked under ``cfg.opt_ce_chunk``), with each layer
 of its forward under ``cfg.remat`` (``"full"``: ``torch.utils.checkpoint``;
 ``"dots"``: selective checkpointing that keeps the plain matrix products'
-outputs; ``"none"``); the vlm and encdec families do not train yet.  A
+outputs; ``"none"``); the vlm family's loss skips its patch prefix, the
+encdec family's encodes the frames under the loss.  A
 model built for inference holds frozen parameters
 (``requires_grad=False``), so serving builds no autograd graph; the train
 state holds a second model over a copy of the weights (``stacked_params``)
@@ -401,19 +402,6 @@ def _region(cls: type, kind: str):
     return run
 
 
-#: the families whose loss is not ported (the reference predicts the text
-#: tokens only, the vlm prefix sliced off, and encodes the frames under the
-#: loss)
-UNTRAINED_FAMILIES = ("vlm", "encdec")
-
-
-def untrained_family_error(cfg) -> NotImplementedError:
-    """The refusal of a loss of ``UNTRAINED_FAMILIES``."""
-    return NotImplementedError(
-        f"{cfg.name}: training the {cfg.family} family is not ported "
-        f"yet (ROADMAP Queue 1, item 15: the vlm and encdec loss)")
-
-
 class Model(nn.Module):
     """The model over a param tree in the reference's layout (the stacked
     leaves carry their layer axes)."""
@@ -512,15 +500,16 @@ class Model(nn.Module):
 
     # ---------------- encoder (whisper) ----------------
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, remat: str = "none") -> torch.Tensor:
         """frames (B, enc_seq, d_model) precomputed (the conv front end is
         a stub, as in the reference) -> the encoder's output: learned
-        positions, full-mask self-attention layers, then ``enc_norm``."""
+        positions, full-mask self-attention layers (each under ``remat``),
+        then ``enc_norm``."""
         cfg = self.cfg
         cdt = cfg.compute_dtype
         x = frames.to(device=self.device, dtype=cdt) + self.enc_pos_embed.to(cdt)
         for blk in self.enc_blocks:
-            x = blk(x, positions=None)
+            x = _remat(blk, remat)(x, positions=None)
         return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def _fill_cross(self, cache: Dict[str, Any], enc_out: torch.Tensor) -> None:
@@ -578,19 +567,24 @@ class Model(nn.Module):
 
     def loss(self, batch: Mapping[str, torch.Tensor]):
         """(loss, {"loss", "ppl"}): the mean next-token NLL in fp32 from
-        ``logsumexp - gold``, each layer under ``cfg.remat``.  Under
+        ``logsumexp - gold``, each layer under ``cfg.remat``.  The vlm
+        family predicts the text tokens only (the patch prefix is sliced
+        off before the head); the encdec family encodes ``batch["frames"]``
+        under the loss, its layers under ``cfg.remat`` too.  Under
         ``cfg.opt_ce_chunk`` the sequence is cut into chunks (padded, with
         a valid mask) whose logits are formed one chunk at a time and
         recomputed in the backward, so the full (B, S, V) fp32 logits never
         exist."""
         cfg = self.cfg
-        if cfg.family in UNTRAINED_FAMILIES:
-            raise untrained_family_error(cfg)
         tokens = batch["tokens"]
-        x = self._embed(tokens)
+        x = self._inputs(batch)
+        enc_out = (self.encode(batch["frames"], remat=cfg.remat)
+                   if cfg.family == "encdec" else None)
         # positions None: each attention layer counts from 0 with an int
         # offset (the backward kernel takes no offset tensor)
-        hidden = self._run_layers(x, None, None, remat=cfg.remat)
+        hidden = self._run_layers(x, None, None, remat=cfg.remat, enc_out=enc_out)
+        if cfg.family == "vlm":
+            hidden = hidden[:, cfg.n_prefix:]
         targets = tokens[:, 1:].long()
         if cfg.opt_ce_chunk > 0:
             hid = hidden[:, :-1]

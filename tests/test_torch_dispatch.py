@@ -247,7 +247,8 @@ def test_a_cuda_error_makes_the_worker_reply_exit_and_be_respawned():
     ("RuntimeError: flash attention (tc) launch failed: CUDA error 700", True),
     ("OutOfMemoryError: CUDA out of memory. Tried to allocate 2.00 GiB", True),
     ("RuntimeError: CUDA error: CUBLAS_STATUS_EXECUTION_FAILED when calling cublasGemmEx", True),
-    ("NotImplementedError: ssd: the CUDA kernel has no backward yet", False),
+    ("NotImplementedError: task='kernel' is not ported yet (ROADMAP Queue 1, item 11: "
+     "the kernel autotuner's cells)", False),
     ("ValueError: shapes do not match", False),
 ])
 def test_which_failures_end_a_worker(error, fault):

@@ -21,7 +21,7 @@ from repro.kernels.ssd.ops import ssd as ref_ssd
 from repro_torch.core.coverage import step_surfaces
 from repro_torch.core.harness import compile_step, dynamo_counts
 from repro_torch.core.hloanalysis import analyze_step
-from repro_torch.kernels import flash_attention, library, rglru, ssd
+from repro_torch.kernels import accounting, flash_attention, library, rglru, ssd
 from repro_torch.kernels.accounting import SCOPE_PREFIX
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -220,17 +220,29 @@ def test_ssd_and_rglru_gradients_are_autograd_through_the_plain_versions():
 
 
 def test_only_the_flash_op_has_a_gradient_on_the_card(monkeypatch):
-    """The SSD's and RG-LRU's refusal lies in their ops' autograd setup,
-    which runs only when a gradient is wanted, at run time: CPU tensors
-    that claim to lie on the card stand in for the card here."""
+    """Every forward op has a gradient on the card: the SSD's and RG-LRU's
+    backward go through their backward ops, ``repro_torch::ssd_bwd`` and
+    ``repro_torch::rglru_bwd`` (the kernels on the card), as the flash
+    op's goes through ``flash_attention_bwd``.  CPU tensors that claim to
+    lie on the card stand in for the card here (the old refusal read
+    ``is_cuda``); the ops run their CPU implementations.  The name is the
+    one the test had while only the flash op had a gradient there."""
     arrays = _ssd_np(B=1, S=8, H=2, P=8, N=16)
     xa = _xa_np(B=1, S=8, D=16)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd(*_t(*arrays, grad=True))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rglru(*_t(*xa, grad=True))
+    seen = []
+
+    class Calls:
+        depth = 0
+
+        def add_kernel(self, name, flops, nbytes):
+            seen.append(name)
+
+    with accounting.accounting(Calls()):
+        y, state = ssd(*_t(*arrays, grad=True))
+        (y.sum() + state.sum()).backward()
+        h, last = rglru(*_t(*xa, grad=True))
+        (h.sum() + last.sum()).backward()
+    assert seen == ["ssd", "ssd_bwd", "rglru", "rglru_bwd"]
     y, state = ssd(*_t(*arrays))
     assert y.shape == arrays[0].shape and state.shape == (1, 2, 8, 16)
-    h, _ = rglru(*_t(*xa))
-    assert h.shape == xa[0].shape

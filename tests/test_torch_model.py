@@ -137,12 +137,17 @@ def test_unported_configs_raise_naming_the_roadmap(change):
 
 @pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-large-v3"])
 def test_unported_losses_raise_naming_the_roadmap(arch):
-    """The vlm and encdec families serve but do not train yet: their loss
-    raises, and so does the suite's train entry, before it builds a state
-    or a step (an error record through the runner)."""
+    """The vlm and encdec families train (their losses were refused until
+    ROADMAP items 15-16 were done): the loss of the suite's train inputs
+    is finite and the suite's train entry builds a state and steps.  The
+    values are held to the reference in ``tests/test_torch_train_families.py``.
+    The name is the one the test had while it checked the refusal: it now
+    checks that both families train."""
     from repro_torch.core.suite import build_arch, get_benchmark
     built = build_arch(arch, {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        built.model.loss({"tokens": torch.zeros((1, 8), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_benchmark(arch, "train").make(batch=1, seq=8, built=built)
+    step, (state, inputs), _ = get_benchmark(arch, "train").make(batch=1, seq=8, built=built)
+    with torch.no_grad():
+        loss, metrics = built.model.loss(inputs)
+    assert loss.dim() == 0 and np.isfinite(float(loss)) and set(metrics) == {"loss", "ppl"}
+    state, metrics = step(state, inputs)
+    assert int(state[1].step) == 1 and np.isfinite(float(metrics["loss"]))

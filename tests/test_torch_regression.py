@@ -261,14 +261,17 @@ def test_nightly_detects_an_injected_slowdown(tmp_path):
 
 
 def test_a_refused_cell_is_a_status_issue(tmp_path):
+    """A cell the port still refuses (mixtral-8x7b, whose family comes
+    with ROADMAP Queue 1's item 6) comes back as a status issue carrying
+    its refusal, and records no baseline."""
     store = MetricStore(str(tmp_path / "metrics.json"))
-    rep = ci.run_nightly(store, archs=["whisper-large-v3"], tasks=("train",), runs=1,
+    rep = ci.run_nightly(store, archs=["mixtral-8x7b"], tasks=("train",), runs=1,
                          batches=(1,), seqs=(8,), update_baseline=True,
                          runner=BenchmarkRunner(device="cpu", runs=1, warmup=0,
                                                 compile_warmup=0))
     (issue,) = rep.issues
     assert rep.ran == 1 and issue.metric == "status"
-    assert issue.benchmark == "whisper-large-v3/train" and "item 15" in issue.culprit
+    assert issue.benchmark == "mixtral-8x7b/train" and "ROADMAP Queue 1" in issue.culprit
     assert store.data == {}
 
 
@@ -284,6 +287,26 @@ class _Recorder:
 
     def close(self):
         pass
+
+
+def test_a_night_runs_each_cell_in_the_mode_it_is_given(tmp_path):
+    """``modes`` with ``exclude``: one cell compiled, another uncompiled, in
+    one night (as ``chip_smoke.py``'s nightly runs its train cells); by
+    default every cell runs in the reference nightly's one mode,
+    ``jit_donated``."""
+    rec = _Recorder()
+    rep = ci.run_nightly(MetricStore(str(tmp_path / "m.json")),
+                         archs=["gemma-2b", "mamba2-2.7b"], runner=rec,
+                         modes=("jit_donated", "eager"),
+                         exclude=(r"/infer_decode/.*/eager$", r"/train/.*/jit_donated$"))
+    assert rep.ran == 0 and sorted(rec.names) == [
+        "gemma-2b/infer_decode/b2/s64/fp32/jit_donated", "gemma-2b/train/b2/s64/fp32/eager",
+        "mamba2-2.7b/infer_decode/b2/s64/fp32/jit_donated",
+        "mamba2-2.7b/train/b2/s64/fp32/eager"]
+    rec = _Recorder()
+    ci.run_nightly(MetricStore(str(tmp_path / "d.json")), archs=["mamba2-2.7b"],
+                   runner=rec, tasks=("train",))
+    assert rec.names == ["mamba2-2.7b/train/b2/s64/fp32/jit_donated"]
 
 
 @pytest.mark.parametrize("kw", [{}, {"tasks": ("infer_prefill",), "batches": (1, 4),
